@@ -15,12 +15,17 @@ It imports nothing of JAX or of ``karpenter_tpu``.
    NodePools, ``benchmark_catalog(500)`` — and solves it with
    ``TorchSolver()`` on the card, with every kernel launch count set to 0
    just before and read just after. Every pod must be scheduled and every
-   kernel of the path launched.
+   kernel of the path launched: compat 2 + Gp times per dispatch (G×T,
+   G×M, and one group row against the bins per pack step).
 4. Holds each kernel against its plain PyTorch version on the card, at the
-   main path's own inputs and at extra shapes (exact equality), and times
-   kernel, plain version and bound: ``ms`` is the CUDA-event time per call
-   of back-to-back wrapper calls (host launch cost included), ``device_ms``
-   the kernels' own time from a torch.profiler trace.
+   main path's own inputs (G×T, G×M, one group row × Bp bins), at a scale
+   case and at edge shapes (exact equality), and times kernel, plain
+   version and bound: ``ms`` is the CUDA-event time per call of
+   back-to-back wrapper calls (host launch cost included), ``device_ms``
+   the kernels' own time from a torch.profiler trace, ``floor_device_ms``
+   the device time of an empty launch, ``wrapper_host_us_1xB`` the host
+   cost of one wrapper call at phase B's shape beside its two fixed
+   parts (the output allocation and a bare launch).
 5. Re-runs the dispatch with host reads forbidden (sync debug mode), then
    on the CPU plain path: assign, assign_e, used, tmpl, F, price must be
    bit-equal, and a CPU solve must open the same number of nodes.
@@ -47,6 +52,16 @@ HBM_BYTES_PER_S = 3.35e12
 VECTOR_OPS_PER_S = 67e12
 
 N_PODS, N_TYPES = 50_000, 500
+
+# compat cases beside the main path's own inputs, (G, T, K, W): a cluster
+# of ~512 pod shapes over 8 NodePools of the 500-type catalog, and edge
+# shapes (W=1 with K=128, ragged rows, a tile that streams the key axis
+# through more than 48 KB of shared memory, tall and thin products)
+SCALE_SHAPE = (512, 4096, 9, 16)
+EDGE_SHAPES = [(8, 128, 128, 1), (1, 1, 1, 1), (7, 129, 5, 3),
+               (33, 1000, 17, 2), (100, 50, 3, 40), (9, 300, 64, 32),
+               (1, 1536, 9, 16), (3, 70, 5, 3), (2, 33, 128, 32),
+               (600, 40, 2, 1)]
 
 
 class SmokeFailure(RuntimeError):
@@ -156,17 +171,92 @@ def compat_case(rng, G, T, K, W, device):
 def compat_bound_ms(gm, gh, tm, th) -> tuple:
     """Least time for one compat call: each input byte read once and each
     output byte written once at HBM rate, against the logic operations
-    this data needs (2W+3 per group row and defined type key) at the
-    vector rate; the larger of the two, and which one it is."""
+    this data needs (2W+3 for each key that both the group row and the
+    type define; a key either leaves undefined is true with no word
+    read) at the vector rate; the larger of the two, and which one it
+    is."""
+    import torch
+
     G, _, W = gm.shape
     T = tm.shape[0]
     in_bytes = sum(x.numel() * x.element_size() for x in (gm, gh, tm, th))
     in_bytes += gh.numel() + th.numel()  # the tol rows, one byte per key
     out_bytes = G * T
     bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-    ops = G * int(th.sum()) * (2 * W + 3)
+    pairs = gh.sum(0, dtype=torch.int64) * th.sum(0, dtype=torch.int64)
+    ops = int(pairs.sum()) * (2 * W + 3)
     ops_ms = ops / VECTOR_OPS_PER_S * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def bins_case(args, G, B, kernels):
+    """Pack phase B's compat inputs at the headline: the group row that
+    defines the most keys against B bin rows, each the requirements a
+    fresh bin carries (template row ∧ a group row, as ``pack`` opens it),
+    no tolerance."""
+    import torch
+
+    dev = args["g_mask"].device
+    g = int(args["g_has"][:G].sum(1).argmax())
+    gi = torch.arange(B, device=dev) % G
+    mi = torch.arange(B, device=dev) % args["m_mask"].shape[0]
+    bmask, bhas = kernels._combine_masks(
+        args["m_mask"][mi], args["m_has"][mi],
+        args["g_mask"][gi], args["g_has"][gi])
+    K = bhas.shape[1]
+    return [args["g_mask"][g:g + 1].contiguous(),
+            args["g_has"][g:g + 1].contiguous(),
+            torch.zeros((1, K), dtype=torch.bool, device=dev),
+            bmask.contiguous(), bhas.contiguous(),
+            torch.zeros((B, K), dtype=torch.bool, device=dev)]
+
+
+def time_compat(inp, cuda_kernels) -> dict:
+    """Kernel, plain version and bound for one compat case."""
+    bound, by = compat_bound_ms(inp[0], inp[1], inp[3], inp[4])
+    kern = device_times(lambda: cuda_kernels.compat(*inp), 50,
+                        kernel="compat_kernel")
+    plain = device_times(lambda: cuda_kernels.compat_reference(*inp), 20)
+    ms = time_ms(lambda: cuda_kernels.compat(*inp))
+    device_ms = kern and kern["device_ms"]
+    return dict(
+        ms=ms, us=ms * 1e3,
+        plain_ms=time_ms(lambda: cuda_kernels.compat_reference(*inp),
+                         reps=10, inner=5),
+        device_ms=device_ms,
+        plain_device_ms=plain and plain["device_ms"],
+        plain_kernels=plain and plain["kernels"],
+        bound_ms=bound, bound_by=by,
+        bound_share=bound / device_ms if device_ms else None)
+
+
+def wrapper_host_us(inp, cuda_kernels, n: int = 2000) -> dict:
+    """Host microseconds per call, by the host clock over ``n`` calls
+    without a sync between them: the whole compat wrapper, the output
+    allocation alone, and a bare ctypes launch of the empty kernel."""
+    import torch
+
+    dev = inp[0].device
+    G, T = inp[0].shape[0], inp[3].shape[0]
+    lib = cuda_kernels._lib("compat")
+    stream = cuda_kernels._stream(dev.index)
+    pieces = {
+        "compat": lambda: cuda_kernels.compat(*inp),
+        "torch_empty": lambda: torch.empty((G, T), dtype=torch.bool,
+                                           device=dev),
+        "empty_launch": lambda: lib.karpenter_compat_noop(stream),
+    }
+    out = {}
+    for name, fn in pieces.items():
+        for _ in range(100):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        out[name] = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+    return out
 
 
 def main() -> int:
@@ -179,7 +269,7 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from karpenter_tpu_torch.models import TorchSolver
     from karpenter_tpu_torch.ops import cuda_kernels, kernels
-    from karpenter_tpu_torch.ops.tensorize import kernel_args, tensorize
+    from karpenter_tpu_torch.ops.tensorize import bucket, kernel_args, tensorize
     from karpenter_tpu_torch.utils import resources as resutil
     from karpenter_tpu_torch.workload import build_workload
 
@@ -217,8 +307,10 @@ def main() -> int:
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on the main path")
     n_dispatch = 1 + stats.get("bin_growths", 0)
-    check(launches["compat"] == 2 * n_dispatch,
-          f"compat launches {launches['compat']} != 2 per dispatch")
+    Gp = bucket(stats["groups"])  # pack steps per dispatch
+    check(launches["compat"] == (2 + Gp) * n_dispatch,
+          f"compat launches {launches['compat']} != 2 + Gp = {2 + Gp} "
+          f"per dispatch over {n_dispatch} dispatches")
     for claim in res.new_claims:
         check(claim.instance_types and all(
             resutil.fits(claim.requests, it.allocatable())
@@ -275,10 +367,12 @@ def main() -> int:
                                    "t_mask", "t_has", "t_tol")]
     gm_in = gt_in[:3] + [args_gpu[k] for k in ("m_mask", "m_has", "m_tol")]
     rng = np.random.default_rng(0)
-    cases = [("main GxT", gt_in), ("main GxM", gm_in)]
-    for shape in [(8, 128, 128, 1), (1, 1, 1, 1), (7, 129, 5, 3),
-                  (33, 1000, 17, 2), (100, 50, 3, 40), (9, 300, 64, 32)]:
-        cases.append(("x".join(map(str, shape)), compat_case(rng, *shape, dev)))
+    timed = [("main GxT", gt_in), ("main GxM", gm_in),
+             ("main 1xB", bins_case(args_gpu, snap.G, Bp, kernels)),
+             ("scale " + "x".join(map(str, SCALE_SHAPE)),
+              compat_case(rng, *SCALE_SHAPE, dev))]
+    cases = timed + [("x".join(map(str, shape)), compat_case(rng, *shape, dev))
+                     for shape in EDGE_SHAPES]
     shapes = []
     mismatches = 0
     for label, inp in cases:
@@ -287,27 +381,18 @@ def main() -> int:
         torch.cuda.synchronize()
         bad = int((got != want).sum())
         mismatches += bad
-        entry = dict(case=label, shape=[inp[0].shape[0], inp[3].shape[0],
-                                        inp[0].shape[1], inp[0].shape[2]],
+        shape = (inp[0].shape[0], inp[3].shape[0], *inp[0].shape[1:])
+        entry = dict(case=label, shape=list(shape),
+                     tile=cuda_kernels.compat_tile(*shape)._asdict(),
                      mismatches=bad)
-        if label.startswith("main"):
-            bound, by = compat_bound_ms(inp[0], inp[1], inp[3], inp[4])
-            kern = device_times(lambda: cuda_kernels.compat(*inp), 50,
-                                kernel="compat_kernel")
-            plain = device_times(
-                lambda: cuda_kernels.compat_reference(*inp), 20)
-            entry.update(
-                ms=time_ms(lambda: cuda_kernels.compat(*inp)),
-                plain_ms=time_ms(lambda: cuda_kernels.compat_reference(*inp),
-                                 reps=10, inner=5),
-                device_ms=kern and kern["device_ms"],
-                plain_device_ms=plain and plain["device_ms"],
-                plain_kernels=plain and plain["kernels"],
-                bound_ms=bound, bound_by=by)
-            entry["us"] = entry["ms"] * 1e3
+        if any(label == name for name, _ in timed):
+            entry.update(time_compat(inp, cuda_kernels))
         shapes.append(entry)
     check(mismatches == 0, f"compat kernel disagrees with its plain version "
                            f"in {mismatches} cells: {shapes}")
+    floor = device_times(lambda: cuda_kernels.compat_noop(dev), 50,
+                         kernel="noop_kernel")
+    host_us = wrapper_host_us(timed[2][1], cuda_kernels)
     main_gt = shapes[0]
     kernels_line = {"kernels": [{
         "name": "compat",
@@ -326,6 +411,8 @@ def main() -> int:
         "bound_ms": main_gt["bound_ms"],
         "bound_by": main_gt["bound_by"],
         "library_ms": None,
+        "floor_device_ms": floor and floor["device_ms"],
+        "wrapper_host_us_1xB": host_us,
         "shapes": shapes,
     }]}
     solve_line = {"solve": {

@@ -6,7 +6,9 @@ sits beside its plain PyTorch version:
 - ``compat`` — requirement compatibility ``[G,T]`` of group rows against
   type (or template) rows over K keys of W mask words
   (``csrc/compat.cu``, replacing ``compat_pallas``, which only took W=1).
-  ``compat_reference`` is its plain version.
+  ``compat_reference`` is its plain version; ``compat_tile`` picks the
+  kernel's tile for a shape; ``compat_noop`` launches the source's empty
+  kernel, the floor any launch pays.
 
 A wrapper given CPU tensors runs the plain version — that is the port's
 CPU path and what the tests run. Given CUDA tensors it launches the kernel
@@ -23,11 +25,14 @@ calls), so a run can show that its path went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -102,10 +107,10 @@ def _lib(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build([name])[name]))
         vp, ci = ctypes.c_void_p, ctypes.c_int
         if name == "compat":
-            lib.karpenter_compat.argtypes = [vp] * 7 + [ci] * 4 + [vp]
+            lib.karpenter_compat.argtypes = [ctypes.c_char_p]
             lib.karpenter_compat.restype = ci
-            lib.karpenter_compat_smem_bytes.argtypes = [ci, ci]
-            lib.karpenter_compat_smem_bytes.restype = ctypes.c_size_t
+            lib.karpenter_compat_noop.argtypes = [vp]
+            lib.karpenter_compat_noop.restype = ci
         lib.karpenter_cuda_error_string.argtypes = [ci]
         lib.karpenter_cuda_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib
@@ -118,8 +123,83 @@ def _check_launch(lib, rc: int, name: str) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} ({rc})")
 
 
-# largest dynamic shared memory one block may take on an H100
+def _stream(index: int) -> int:
+    """The raw handle of the current stream on CUDA device ``index``."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+# H100: streaming multiprocessors, and the largest dynamic shared memory
+# one block may take
+_SMS = 132
 _MAX_SMEM = 232448
+# a compat block keeps under this much shared memory when the key axis can
+# be streamed in chunks (two blocks fit on an SM)
+_SMEM_BUDGET = 112 * 1024
+# pairs at or above which a thread takes a 4 × 4 register tile of pairs
+# (16 per thread with 256 threads on every SM)
+_TILE_PAIRS = _SMS * 256 * 16
+# the launch arguments of csrc/compat.cu's karpenter_compat (CompatArgs):
+# seven pointers, G, T, K, W, the tile (tt, tg, rg, rt, kc, threads,
+# smem), the device index and the stream, packed into one buffer
+_COMPAT_ARGS = struct.Struct("<20q")
+
+
+class CompatTile(NamedTuple):
+    tt: int  # types per block
+    tg: int  # group rows per block
+    rg: int  # group rows per thread
+    rt: int  # types per thread
+    kc: int  # keys per shared-memory chunk
+    threads: int  # threads per block, >= the (tt // rt) * (tg // rg) testing pairs
+    grid: tuple  # (blocks along T, blocks along G)
+    smem: int  # dynamic shared memory bytes per block
+
+
+def _compat_smem(tt: int, tg: int, kc: int, K: int, W: int) -> int:
+    """Bytes of dynamic shared memory of one compat block (csrc/compat.cu's
+    layout, with the 16-byte path's row padding: the larger of the two)."""
+    kcw = kc * W
+    stride = (kcw + 7) // 8 * 8 + 4
+    words = (tt + tg) * stride + kcw + 2 * kc + 3
+    byte_run = lambda n: (n * K + 30) // 16 * 16  # noqa: E731
+    return (-(-4 * words // 16) * 16 + 2 * byte_run(tg) + 2 * byte_run(tt)
+            + kcw + kc)
+
+
+@functools.lru_cache(maxsize=512)
+def compat_tile(G: int, T: int, K: int, W: int) -> CompatTile:
+    """The compat kernel's tile for one shape (G, T >= 1). One (g,t) pair
+    per thread, or 4 group rows × 4 types per thread once the pairs fill
+    every SM 16 times over; block size 64-256 threads so the grid covers
+    the SMs; 32 threads along T (a warp shares its group rows and writes
+    neighbouring output bytes) unless T is smaller or G too small to fill
+    the block; 256 threads per block when the grid leaves SMs idle (the
+    extra threads only stage rows); as many keys per shared-memory chunk
+    as fit the budget. Raises if one key of the smallest tile does not
+    fit in shared memory."""
+    rg = rt = 4 if G * T >= _TILE_PAIRS and G >= 4 and T >= 128 else 1
+    gsub_max, cols = -(-G // rg), -(-T // rt)  # threads needed along G, T
+    needed = gsub_max * cols
+    block = 256 if needed >= _SMS * 256 else (
+        128 if needed >= _SMS * 128 else 64)
+    if cols >= 32:
+        gsub = max(1, min(block // 32, gsub_max))
+        tl = max(32, block // gsub // 32 * 32)
+        tl = min(tl, -(-cols // 32) * 32)
+    else:
+        tl = cols
+        gsub = max(1, min(block // cols, gsub_max))
+    tt, tg = tl * rt, gsub * rg
+    kc = K if K > 0 else 1
+    while kc > 1 and _compat_smem(tt, tg, kc, K, W) > _SMEM_BUDGET:
+        kc -= 1
+    smem = _compat_smem(tt, tg, kc, K, W)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"compat: one key of W={W} words does not fit the "
+                         "kernel's shared-memory tile")
+    grid = (-(-T // tt), -(-G // tg))
+    threads = 256 if grid[0] * grid[1] < _SMS else tl * gsub
+    return CompatTile(tt, tg, rg, rt, kc, threads, grid, smem)
 
 
 def compat_reference(g_mask, g_has, g_tol, t_mask, t_has, t_tol):
@@ -140,40 +220,55 @@ def compat_reference(g_mask, g_has, g_tol, t_mask, t_has, t_tol):
 def compat(g_mask, g_has, g_tol, t_mask, t_has, t_tol):
     """compat [G,T] bool. g_mask [G,K,W] / t_mask [T,K,W] int32 bit
     patterns; g_has/g_tol [G,K] and t_has/t_tol [T,K] bool. CPU tensors
-    take ``compat_reference``; CUDA tensors launch ``csrc/compat.cu``."""
+    take ``compat_reference``; CUDA tensors launch ``csrc/compat.cu``.
+    The checks below are written for speed: pack calls this once per
+    group row."""
     tensors = (g_mask, g_has, g_tol, t_mask, t_has, t_tol)
-    if all(x.device.type == "cpu" for x in tensors):
+    if (g_mask.is_cpu and g_has.is_cpu and g_tol.is_cpu and t_mask.is_cpu
+            and t_has.is_cpu and t_tol.is_cpu):
         return compat_reference(*tensors)
-    dev = g_mask.device
-    if dev.type != "cuda" or any(x.device != dev for x in tensors):
+    index = g_mask.get_device()
+    if not (g_mask.is_cuda and g_has.get_device() == g_tol.get_device()
+            == t_mask.get_device() == t_has.get_device()
+            == t_tol.get_device() == index):
         raise ValueError("compat: all inputs must lie on one CUDA device "
                          f"(got {[str(x.device) for x in tensors]})")
     if g_mask.dtype != torch.int32 or t_mask.dtype != torch.int32:
         raise TypeError("compat: masks must be int32 bit patterns")
-    if any(x.dtype != torch.bool for x in (g_has, g_tol, t_has, t_tol)):
+    if not (g_has.dtype == g_tol.dtype == t_has.dtype == t_tol.dtype
+            == torch.bool):
         raise TypeError("compat: has/tol must be bool")
     G, K, W = g_mask.shape
     T = t_mask.shape[0]
-    if (t_mask.shape != (T, K, W) or g_has.shape != (G, K)
-            or g_tol.shape != (G, K) or t_has.shape != (T, K)
-            or t_tol.shape != (T, K)):
+    if ((t_mask.shape, g_has.shape, g_tol.shape, t_has.shape, t_tol.shape)
+            != ((T, K, W), (G, K), (G, K), (T, K), (T, K))):
         raise ValueError("compat: shape mismatch "
                          f"{[tuple(x.shape) for x in tensors]}")
-    if not all(x.is_contiguous() for x in tensors):
+    if not (g_mask.is_contiguous() and g_has.is_contiguous()
+            and g_tol.is_contiguous() and t_mask.is_contiguous()
+            and t_has.is_contiguous() and t_tol.is_contiguous()):
         raise ValueError("compat: inputs must be contiguous")
-    lib = _lib("compat")
-    if lib.karpenter_compat_smem_bytes(K, W) > _MAX_SMEM:
-        raise ValueError(f"compat: K={K} keys of W={W} words exceed the "
-                         "kernel's shared-memory tile")
-    out = torch.empty((G, T), dtype=torch.bool, device=dev)
+    out = torch.empty((G, T), dtype=torch.bool, device=g_mask.device)
     if G == 0 or T == 0:
         return out
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.karpenter_compat(
-            g_mask.data_ptr(), g_has.data_ptr(), g_tol.data_ptr(),
-            t_mask.data_ptr(), t_has.data_ptr(), t_tol.data_ptr(),
-            out.data_ptr(), G, T, K, W, stream)
+    tile = compat_tile(G, T, K, W)
+    lib = _LIBS.get("compat") or _lib("compat")
+    rc = lib.karpenter_compat(_COMPAT_ARGS.pack(
+        g_mask.data_ptr(), g_has.data_ptr(), g_tol.data_ptr(),
+        t_mask.data_ptr(), t_has.data_ptr(), t_tol.data_ptr(),
+        out.data_ptr(), G, T, K, W, tile.tt, tile.tg, tile.rg, tile.rt,
+        tile.kc, tile.threads, tile.smem, index, _stream(index)))
     _check_launch(lib, rc, "compat")
     LAUNCHES["compat"] += 1
     return out
+
+
+def compat_noop(device) -> None:
+    """Launch the empty kernel of ``csrc/compat.cu`` on ``device``'s current
+    stream: the least device time any launch takes. Not counted in
+    ``LAUNCHES``."""
+    dev = torch.device(device)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    lib = _lib("compat")
+    with torch.cuda.device(index):
+        _check_launch(lib, lib.karpenter_compat_noop(_stream(index)), "noop")

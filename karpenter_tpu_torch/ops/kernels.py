@@ -11,10 +11,11 @@ the same f32 expression and matches the JAX package bit for bit:
   ``ops.cuda_kernels.compat``: the hand-written CUDA kernel for tensors on
   the card, its plain version for tensors on the CPU.
 - ``pack`` is the FFD scan over pod groups. ``lax.scan`` becomes a Python
-  loop over the group rows; nothing inside it reads a value back to the
-  host (no ``.item()``, no ``bool(tensor)``, no boolean-mask indexing), so
-  on the card the whole solve queues asynchronously and the caller reads
-  one buffer back.
+  loop over the group rows. Each row's compat against the open bins
+  (phase B) goes through ``compat`` too, as a ``[1,B]`` product. Nothing
+  inside the loop reads a value back to the host (no ``.item()``, no
+  ``bool(tensor)``, no boolean-mask indexing), so on the card the whole
+  solve queues asynchronously and the caller reads one buffer back.
 
 Where the two frameworks differ and this module compensates:
 
@@ -265,6 +266,8 @@ def pack(
         eaff = e_aff.to(_I32)
     assign = zeros((G, B), _I32)
     assign_e = zeros((G, E), _I32)
+    no_tol_g = zeros((1,) + tuple(g_has.shape[1:]), torch.bool)
+    no_tol_b = zeros((B,) + tuple(g_has.shape[1:]), torch.bool)
 
     for g in range(G):
         d = g_demand[g]
@@ -313,9 +316,9 @@ def pack(
             assign_e[g] = take_e
 
         # ---- phase B: open claim bins: compatibility ----
-        both = bhas & gh[None, :]
-        ov = ((bmask & gm[None, :, :]) != 0).any(-1)
-        compat_b = (~both | ov).all(-1)
+        # the group row against every bin row, no tolerance: the compat
+        # kernel at [1,B]
+        compat_b = compat(gm[None], gh[None], no_tol_g, bmask, bhas, no_tol_b)[0]
         compat_b = compat_b & used & tfull[btmpl.long()]
         anti_ok = ((bmatch & decl_g[None, :]) == 0).all(-1) & (
             (bdecl & match_g[None, :]) == 0

@@ -234,3 +234,22 @@ def test_from_kernel_args_dtypes():
     assert t["g_demand"].dtype == torch.float32
     assert t["e_decl"].dtype == torch.int32
     assert all(tuple(t[k].shape) == args[k].shape for k in args)
+
+
+def test_pack_routes_phase_b_through_compat(monkeypatch):
+    """compat runs 2 + G times per solve_step: the G×T and G×M feasibility
+    products, then one group row against the B bins per pack step."""
+    calls = []
+    real = tkernels.compat
+
+    def counting(*args):
+        calls.append((tuple(args[0].shape), tuple(args[3].shape)))
+        return real(*args)
+
+    monkeypatch.setattr(tkernels, "compat", counting)
+    args = make_args("mixed", seed=5)
+    G, T, K, W = 8, 16, 3, 2
+    tkernels.solve_step(tkernels.from_kernel_args(args, "cpu"), max_bins=24)
+    assert len(calls) == 2 + G
+    assert calls[:2] == [((G, K, W), (T, K, W)), ((G, K, W), (2, K, W))]
+    assert calls[2:] == [((1, K, W), (24, K, W))] * G
