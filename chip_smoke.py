@@ -28,11 +28,26 @@ It imports nothing of JAX or of ``karpenter_tpu``.
    parts (the output allocation and a bare launch).
 5. Re-runs the dispatch with host reads forbidden (sync debug mode), then
    on the CPU plain path: assign, assign_e, used, tmpl, F, price must be
-   bit-equal, and a CPU solve must open the same number of nodes.
+   bit-equal, and a CPU solve must open the same number of nodes. Times
+   the LP bin floor (``ops/relax.py``), which sizes the headline's bin
+   axis on the card as the JAX package's does on an accelerator.
+6. The live round, the second main path: the headline's claims launched
+   as a 1,128-node cluster (``workload.live_cluster``) and 5,000 pods of
+   the upstream scheduling benchmark's 1/6 constraint mix (seed 42)
+   provisioned onto it with ``TorchSolver()``, a real ``Topology`` and
+   every node an ``ExistingNode`` — the waves compiler, phase A on the
+   existing nodes, the class gates, the existing-node decode and the
+   topology commit — with the launch counts set to 0 just before and read
+   just after. Every pod must be placed or fail as a pod error; no node
+   may exceed its allocatable and no two pods of the anti-affinity
+   cohort may share a node. The round's last dispatch is re-run on the
+   card (sync debug mode) and on the CPU plain path, bit-equal, and its
+   own G×T and 1×Bp products join the compat cases.
 
-Prints one ``{"kernels": [...]}`` line, one ``{"solve": ...}`` line, the
-card line, and as its last line ``{"ok": true, "device": {...}}``. Any
-failure raises and exits non-zero; so does a machine without CUDA.
+Prints one ``{"kernels": [...]}`` line, one ``{"solve": ...}`` line, one
+``{"live_round": ...}`` line, the card line, and as its last line
+``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
+so does a machine without CUDA.
 """
 
 from __future__ import annotations
@@ -52,6 +67,8 @@ HBM_BYTES_PER_S = 3.35e12
 VECTOR_OPS_PER_S = 67e12
 
 N_PODS, N_TYPES = 50_000, 500
+LIVE_PODS, LIVE_SEED = 5_000, 42
+STEP_OUTPUTS = ("assign", "assign_e", "used", "tmpl", "F", "price", "npods")
 
 # compat cases beside the main path's own inputs, (G, T, K, W): a cluster
 # of ~512 pod shapes over 8 NodePools of the 500-type catalog, and edge
@@ -102,7 +119,12 @@ def time_ms(fn, reps: int = 30, inner: int = 20) -> float:
     return statistics.median(times)
 
 
-def _trace(fn, reps: int):
+def _trace(fn, reps: int, cross_check: bool = False):
+    """``{kernel name: (µs, records)}`` over a trace of ``reps`` calls and
+    the traced wall time, from the profiler's raw device records.
+    ``key_averages`` takes minutes over the ~1.5M records of the live
+    round's dispatch; with ``cross_check`` its device total is computed
+    too and must agree."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -114,43 +136,58 @@ def _trace(fn, reps: int):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name: dict = {}
-    launched = 0
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != DeviceType.CUDA:
             continue
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = ev.self_cuda_time_total
-        by_name[ev.key] = by_name.get(ev.key, 0.0) + us / reps
-        launched += ev.count
-    return by_name, launched, wall_us
+        us, n = by_name.get(ev.name(), (0.0, 0))
+        by_name[ev.name()] = (us + ev.duration_ns() / 1e3, n + 1)
+    if cross_check:
+        total = 0.0
+        for ev in prof.key_averages():
+            if ev.device_type == DeviceType.CUDA:
+                us = getattr(ev, "self_device_time_total", None)
+                total += ev.self_cuda_time_total if us is None else us
+        mine = sum(us for us, _ in by_name.values())
+        check(abs(total - mine) <= 0.01 * max(total, 1e-9),
+              f"profiler totals disagree: raw records {mine} us, "
+              f"key_averages {total} us")
+    return by_name, wall_us
 
 
-def device_times(fn, reps: int, kernel: str | None = None) -> dict | None:
+def device_times(fn, reps: int, kernel: str | None = None,
+                 cross_check: bool = False, warm_up: bool = True) -> dict | None:
     """Device time per call from a torch.profiler trace of ``reps`` calls
-    after a warm-up: total kernel time (or, with ``kernel``, the time of
-    the kernels whose name holds it), kernels launched, the busy share of
-    the traced wall time, and the largest kernel times by name. A trace
-    can come back without the wanted kernel (seen once for the ctypes-
-    launched compat kernel); it is taken again, up to three times, and
-    None is reported if it never shows."""
+    after a warm-up: total kernel time per call, or, with ``kernel``, the
+    mean of the recorded launches of the kernels whose name holds it (the
+    functions timed that way launch it once per call); kernels launched,
+    the busy share of the traced wall time, and the largest kernel times
+    by name. ``recorded`` is the wanted kernel's records per call: a
+    trace can drop records (one of ~33k, seen), and can come back without
+    the wanted kernel at all (seen for the ctypes-launched kernels): it is
+    then taken again, up to three times, and None is reported if it never
+    shows."""
     import torch
 
-    fn()
+    if warm_up:
+        fn()
     torch.cuda.synchronize()
     for _ in range(3):
-        by_name, launched, wall_us = _trace(fn, reps)
-        mine = {k: v for k, v in by_name.items() if kernel is None or kernel in k}
-        total_us = sum(by_name.values())
-        if mine and sum(mine.values()) > 0:
+        by_name, wall_us = _trace(fn, reps, cross_check)
+        mine = [v for k, v in by_name.items() if kernel is None or kernel in k]
+        mine_us = sum(us for us, _ in mine)
+        if mine_us > 0:
             break
     else:
         return None
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    return {"device_ms": sum(mine.values()) / 1e3,
+    mine_n = sum(n for _, n in mine)
+    total_us = sum(us for us, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    return {"device_ms": (mine_us / mine_n if kernel else total_us / reps) / 1e3,
+            "recorded": mine_n / reps,
             "wall_ms": wall_us / reps / 1e3,
-            "kernels": launched / reps, "busy": total_us * reps / wall_us,
-            "top_us": {k[:60]: v for k, v in top}}
+            "kernels": sum(n for _, n in by_name.values()) / reps,
+            "busy": total_us / wall_us,
+            "top_us": {k[:60]: us / reps for k, (us, _) in top}}
 
 
 def compat_case(rng, G, T, K, W, device):
@@ -259,6 +296,148 @@ def wrapper_host_us(inp, cuda_kernels, n: int = 2000) -> dict:
     return out
 
 
+def check_dispatch(args_gpu, step_kw, kernels, label: str) -> tuple:
+    """Re-run one dispatch on the card with host reads forbidden (sync
+    debug mode), then on the CPU plain path: every integer output and the
+    price must be bit-equal. Returns the card's dispatch time by CUDA
+    events (ms) and the CPU dispatch's host time (ms)."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        start.record()
+        out_gpu = kernels.solve_step(args_gpu, **step_kw)
+        stop.record()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    stop.synchronize()
+    args_cpu = {k: v.cpu() for k, v in args_gpu.items()}
+    t0 = time.perf_counter()
+    out_cpu = kernels.solve_step(args_cpu, **step_kw)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    for key in STEP_OUTPUTS:
+        a, b = out_gpu[key].cpu().numpy(), out_cpu[key].numpy()
+        check(a.shape == b.shape and np.array_equal(a, b),
+              f"{label}: cuda and cpu solve_step differ in {key}")
+    return start.elapsed_time(stop), cpu_ms
+
+
+def live_round_phase(claims, templates, its, cuda_kernels, kernels) -> tuple:
+    """The live round on the card: ``(live_line, cases, launches,
+    trace)`` — the printed record, the round's own compat inputs (its
+    last dispatch's G×T and 1×Bp products), the launch counts of the run,
+    and a function that adds the dispatch's profiler trace to the
+    record."""
+    import torch
+
+    from karpenter_tpu_torch.models import TorchSolver
+    from karpenter_tpu_torch.ops.tensorize import bucket
+    from karpenter_tpu_torch.utils import resources as resutil
+    from karpenter_tpu_torch.workload import live_round
+
+    t0 = time.perf_counter()
+    burst, topology, existing = live_round(claims, templates, its,
+                                           n_pods=LIVE_PODS, seed=LIVE_SEED)
+    build_ms = (time.perf_counter() - t0) * 1e3
+    solver = TorchSolver()
+    # the round's dispatches, as the solver issues them
+    dispatches = []
+    real_step = kernels.solve_step
+
+    def recording_step(args, **kw):
+        dispatches.append((args, kw))
+        return real_step(args, **kw)
+
+    kernels.solve_step = recording_step
+    cuda_kernels.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        res = solver.solve(burst, templates, its, topology=topology,
+                           existing_nodes=existing)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        kernels.solve_step = real_step
+    launches = dict(cuda_kernels.LAUNCHES)
+    stats = dict(solver.last_device_stats)
+
+    scheduled = res.scheduled_pod_count()  # claims' and existing nodes'
+    check(scheduled + len(res.pod_errors) == LIVE_PODS,
+          f"live round: {scheduled} placed + {len(res.pod_errors)} errors "
+          f"!= {LIVE_PODS} pods")
+    check(stats["engine"] == "cuda" and stats["device_pods"] > 0,
+          f"live round left the card: {stats}")
+    check(stats["existing"] == len(claims),
+          f"live round saw {stats['existing']} of {len(claims)} nodes")
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched on the live round")
+    check(launches["compat"] == (2 + stats["Gp"]) * len(dispatches),
+          f"live round: compat launches {launches['compat']} != 2 + Gp = "
+          f"{2 + stats['Gp']} per dispatch over {len(dispatches)} dispatches")
+    check(stats["Gp"] == bucket(stats["groups"]), "live round: Gp off bucket")
+    for holder in list(res.new_claims) + existing:
+        # the mix's anti-affinity cohort: one app=nginx pod per hostname
+        cohort = sum(1 for p in holder.pods
+                     if p.metadata.labels.get("app") == "nginx")
+        check(cohort <= 1, f"{cohort} app=nginx pods share {holder}")
+    for node in existing:
+        check(resutil.fits(node.requests, node.cached_available),
+              f"existing node over its allocatable: {node}")
+    for claim in res.new_claims:
+        check(claim.instance_types and all(
+            resutil.fits(claim.requests, it.allocatable())
+            for it in claim.instance_types),
+            f"a claim's requests do not fit its instance types: {claim}")
+
+    # the round's last dispatch, again: on the card and on the CPU
+    args_gpu, step_kw = dispatches[-1]
+    t0 = time.perf_counter()
+    gpu_ms, cpu_ms = check_dispatch(args_gpu, step_kw, kernels, "live round")
+    check_s = time.perf_counter() - t0
+
+    G = stats["groups"]
+    cases = [("live GxT", [args_gpu[k] for k in (
+                 "g_mask", "g_has", "g_tol", "t_mask", "t_has", "t_tol")]),
+             ("live 1xB", bins_case(args_gpu, G, step_kw["max_bins"],
+                                    kernels))]
+    line = {"live_round": {
+        "cluster_nodes": len(claims), "pods": LIVE_PODS, "seed": LIVE_SEED,
+        "build_ms": build_ms, "wall_ms": wall_ms,
+        **{k: stats.get(k) for k in (
+            "waves_compile_ms", "tensorize_ms", "solve_ms", "decode_ms")},
+        "G": G, "Gp": stats["Gp"], "E": stats["existing"], "Ep": stats["Ep"],
+        "T": stats["types"], "B": stats["B"], "Bp": stats["bins"],
+        "bin_growths": stats.get("bin_growths", 0),
+        "dispatches": len(dispatches),
+        "lp_floor": stats["floor"], "lp_led": stats["lp_led"],
+        "existing_pods": stats["existing_pods"],
+        "device_pods": stats["device_pods"], "host_pods": stats["host_pods"],
+        "retry_pods": stats["retry_pods"],
+        "host_routed": stats["host_routed"],
+        "pods_scheduled": scheduled, "nodes": res.node_count(),
+        "pod_errors": len(res.pod_errors),
+        "compat_launches": launches["compat"],
+        "solve_step_gpu_ms": gpu_ms,
+        "solve_step_cpu_ms": cpu_ms,
+        "check_s": check_s,
+    }}
+
+    def trace():
+        """The dispatch under torch.profiler: kernels per dispatch and the
+        busy share. Taken after every other device timing of the run:
+        CUPTI keeps ~1.5M records for it, and timings traced after it
+        came back short."""
+        t0 = time.perf_counter()
+        line["live_round"]["solve_step_trace"] = device_times(
+            lambda: kernels.solve_step(args_gpu, **step_kw), 1, warm_up=False)
+        line["live_round"]["trace_s"] = time.perf_counter() - t0
+
+    return line, cases, launches, trace
+
+
 def main() -> int:
     import torch
 
@@ -268,11 +447,12 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from karpenter_tpu_torch.models import TorchSolver
-    from karpenter_tpu_torch.ops import cuda_kernels, kernels
+    from karpenter_tpu_torch.ops import cuda_kernels, kernels, relax
     from karpenter_tpu_torch.ops.tensorize import bucket, kernel_args, tensorize
     from karpenter_tpu_torch.utils import resources as resutil
     from karpenter_tpu_torch.workload import build_workload
 
+    t_script = time.perf_counter()
     dev = torch.device("cuda")
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -328,38 +508,39 @@ def main() -> int:
     # ---- the same snapshot, tensor by tensor ----
     tpl_sorted = sorted(templates2, key=lambda t: (-t.weight, t.nodepool_name))
     snap = tensorize(pods2, tpl_sorted, its2)
-    plan = TorchSolver.plan(snap)
+    plan = solver.plan(snap)
     Bp = stats["bins"]
+    check(plan["floor"] == stats["floor"] and plan["lp_led"] == stats["lp_led"],
+          f"plan of the headline snapshot {plan} differs from the solve's")
     args_np = kernel_args(snap, Gp=plan["Gp"], Tp=plan["Tp"])
     args_gpu = kernels.from_kernel_args(args_np, dev)
-    args_cpu = kernels.from_kernel_args(args_np, "cpu")
     step_kw = dict(max_bins=Bp, with_existing=False,
                    level_bits=plan["level_bits"], max_minv=plan["max_minv"])
-
-    # no host read inside the dispatch: sync debug mode raises on one
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        out_gpu = kernels.solve_step(args_gpu, **step_kw)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out_cpu = kernels.solve_step(args_cpu, **step_kw)
-    cpu_step_s = time.perf_counter() - t0
-    for key in ("assign", "assign_e", "used", "tmpl", "F", "price", "npods"):
-        a, b = out_gpu[key].cpu().numpy(), out_cpu[key].numpy()
-        check(a.shape == b.shape and np.array_equal(a, b),
-              f"cuda and cpu solve_step differ in {key}")
+    _, cpu_step_ms = check_dispatch(args_gpu, step_kw, kernels, "headline")
     gpu_step_ms = time_ms(lambda: kernels.solve_step(args_gpu, **step_kw),
                           reps=5, inner=2)
-    step_trace = device_times(lambda: kernels.solve_step(args_gpu, **step_kw), 3)
+    step_trace = device_times(lambda: kernels.solve_step(args_gpu, **step_kw), 3,
+                              cross_check=True)
+
+    # the LP bin floor on the card, at the headline's inputs
+    floor_in = [torch.from_numpy(a).to(dev) for a in relax.floor_inputs(snap)]
+    floor_kw = dict(max_iters=relax._relax_max_iters(), tol=relax._relax_tol(),
+                    rho=relax._relax_rho())
+    lb, floor_iters = relax.floor_lb(*floor_in, **floor_kw)
+    lb_cpu, _ = relax.floor_lb(*(x.cpu() for x in floor_in), **floor_kw)
+    check(abs(float(lb) - float(lb_cpu)) <= 1e-4 * max(abs(float(lb_cpu)), 1.0),
+          f"LP floor bound on the card {float(lb)} != CPU {float(lb_cpu)}")
+    floor_trace = device_times(lambda: relax.floor_lb(*floor_in, **floor_kw), 3)
 
     cpu_solver = TorchSolver(device="cpu")
     pods3, templates3, its3 = build_workload(N_PODS, N_TYPES)
     res_cpu = cpu_solver.solve(pods3, templates3, its3)
     check(res_cpu.node_count() == res.node_count(),
           f"node count cuda {res.node_count()} != cpu {res_cpu.node_count()}")
+
+    # ---- the second main path: the live round on the headline's cluster ----
+    live_line, live_cases, live_launches, live_trace = live_round_phase(
+        res.new_claims, templates, its, cuda_kernels, kernels)
 
     # ---- every kernel against its plain version, on the card ----
     _, K, W = args_gpu["g_mask"].shape
@@ -369,6 +550,7 @@ def main() -> int:
     rng = np.random.default_rng(0)
     timed = [("main GxT", gt_in), ("main GxM", gm_in),
              ("main 1xB", bins_case(args_gpu, snap.G, Bp, kernels)),
+             *live_cases,
              ("scale " + "x".join(map(str, SCALE_SHAPE)),
               compat_case(rng, *SCALE_SHAPE, dev))]
     cases = timed + [("x".join(map(str, shape)), compat_case(rng, *shape, dev))
@@ -393,13 +575,16 @@ def main() -> int:
     floor = device_times(lambda: cuda_kernels.compat_noop(dev), 50,
                          kernel="noop_kernel")
     host_us = wrapper_host_us(timed[2][1], cuda_kernels)
+    live_trace()
     main_gt = shapes[0]
     kernels_line = {"kernels": [{
         "name": "compat",
         "route": "cuda",
         "source": "karpenter_tpu_torch/csrc/compat.cu",
         "replaces": "karpenter_tpu/ops/pallas_kernels.py:62",
-        "launches": launches["compat"],
+        "launches": launches["compat"] + live_launches["compat"],
+        "launches_by_path": {"headline": launches["compat"],
+                             "live_round": live_launches["compat"]},
         "max_abs_err": 0 if mismatches == 0 else 1,
         "tolerance": "exact (one bool per cell)",
         "mismatches": mismatches,
@@ -428,13 +613,18 @@ def main() -> int:
                  **{k: warm[k] for k in ("tensorize_ms", "solve_ms",
                                          "decode_ms")}},
         "solve_step_gpu_ms": gpu_step_ms,
-        "solve_step_cpu_ms": cpu_step_s * 1e3,
+        "solve_step_cpu_ms": cpu_step_ms,
         "solve_step_trace": step_trace,
         "cpu_nodes": res_cpu.node_count(),
+        "lp_floor": stats["floor"], "lp_led": stats["lp_led"],
+        "lp_lb": float(lb), "lp_iters": floor_iters,
+        "lp_floor_trace": floor_trace,
         "build_s": build_s,
     }}
     print(json.dumps(kernels_line))
+    live_line["live_round"]["script_s"] = time.perf_counter() - t_script
     print(json.dumps(solve_line))
+    print(json.dumps(live_line))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

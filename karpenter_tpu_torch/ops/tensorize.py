@@ -8,19 +8,24 @@ the argument dict the port's ``ops.kernels.solve_step`` consumes.
 
 Framework-free like the original, and kept line-for-line where it is
 copied, so a parity failure against the JAX package is a kernel fault.
+Existing nodes compile through ``tensorize_existing`` into an
+``ExistingSnapshot`` (phase A's pre-loaded bins), which also keeps itself
+by deltas (``apply_delta``, the original's existing-node delta contract:
+dirty rows are rebuilt by the same function and spliced in, removed rows
+are masked in place so the E axis never shrinks). A waves plan
+(``ops/waves.py``) enters through ``tensorize(..., device_plan=plan)``.
 
-Left out of this copy (later slices of the port, see ROADMAP.md):
-``tensorize_existing``, ``ExistingSnapshot`` and its delta cache (existing
-nodes), the waves ``device_plan`` path (topology), the priority-tier split
-(``tier_of``, the fused admission round), the mesh's ``shard_view`` and
-the flight-recorder spans.
+Left out of this copy (later slices of the port, see ROADMAP.md): the
+priority-tier split (``tier_of``, the fused admission round), the mesh's
+``shard_view``, the flight-recorder spans and the metrics-registry
+counter of clamped negative availabilities (``STATS`` still counts them).
 
 Group-row cache contract (as in the original): ``tensorize`` caches each
-group's packed requirement rows keyed on the pod scheduling signature
-inside the type-side cache entry, whose key fingerprints templates,
-catalog identity and mutable offering state, the group requirement-value
-universe and the resource axis — rows are never served across a
-vocabulary change.
+group's packed requirement rows keyed on (pod scheduling signature, waves
+extra-requirement fingerprint) inside the type-side cache entry, whose key
+fingerprints templates, catalog identity and mutable offering state, the
+group requirement-value universe and the resource axis — rows are never
+served across a vocabulary change.
 """
 
 from __future__ import annotations
@@ -51,6 +56,11 @@ SPREAD_OWNED_MIN = 1 << 29
 # process-wide tensorize accounting — a plain dict, echoed per solve in
 # TorchSolver.last_device_stats
 STATS = {
+    "existing_calls": 0,
+    "existing_ms": 0.0,
+    "delta_applies": 0,
+    "delta_rows": 0,
+    "negative_avail_total": 0,
     # signature-keyed group-row cache (see tensorize): packed requirement
     # rows reused across provisioning rounds/batches
     "group_row_hits": 0,
@@ -90,6 +100,31 @@ def pad_to(a: np.ndarray, shape: tuple, fill=0) -> np.ndarray:
     out = np.full(shape, fill, dtype=a.dtype) if fill else np.zeros(shape, dtype=a.dtype)
     out[tuple(slice(0, s) for s in a.shape)] = a
     return out
+
+
+def splice_rows(dst: np.ndarray, rows, vals) -> np.ndarray:
+    """Row-splice ``vals`` into ``dst`` at ``rows`` along the leading axis —
+    the delta-maintenance primitive :meth:`ExistingSnapshot.apply_delta`
+    uses for dirty existing-node rows, exported so the solver service's
+    per-tenant bundle patching (service/session.py) applies the SAME
+    in-place row semantics to a cached tensor snapshot. Trailing shapes
+    must match; a mismatch raises rather than broadcasting silently."""
+    rows = np.atleast_1d(np.asarray(rows, dtype=np.intp))
+    vals = np.asarray(vals, dtype=dst.dtype)
+    if vals.shape[1:] != dst.shape[1:]:
+        raise ValueError(
+            f"splice_rows: trailing shape {vals.shape[1:]} != {dst.shape[1:]}"
+        )
+    if vals.ndim == 0 or vals.shape[0] != rows.shape[0]:
+        # a (1,...) vals against k rows would broadcast-replicate one row
+        # into every slot with no error — the silent-corruption class this
+        # primitive's checks exist to reject
+        raise ValueError(
+            f"splice_rows: {rows.shape[0]} rows != "
+            f"{vals.shape[0] if vals.ndim else 'scalar'} replacement rows"
+        )
+    dst[rows] = vals
+    return dst
 
 
 @dataclass
@@ -232,11 +267,237 @@ class DeviceSnapshot:
         return c
 
 
-def kernel_args(snap: DeviceSnapshot, Gp: int | None = None,
-                Tp: int | None = None) -> dict:
+@dataclass
+class ExistingSnapshot:
+    """Existing/in-flight nodes as pre-loaded kernel bins
+    (existingnode.go:40-120 compiled to tensors): fixed available capacity,
+    per-group admission (taints + STRICT label compatibility — a node's
+    labels are concrete, so a pod key the node doesn't define fails, unlike
+    the claim-side well-known allowance), and topology class state seeded
+    from the nodes' current pods."""
+
+    nodes: list  # ExistingNode, index-aligned with the E axis
+    e_avail: np.ndarray  # [E,R] f32 available minus remaining daemon reserve
+    ge_ok: np.ndarray  # [G,E] bool group may land on node
+    e_npods: np.ndarray  # [E] i32 current pod count (fill priority)
+    e_scnt: np.ndarray  # [E,C] i32 spread-class counts from current pods
+    e_decl: np.ndarray  # [E,CW] u32 anti classes declared by current pods
+    e_match: np.ndarray  # [E,CW] u32 anti classes matching current pods
+    e_aff: np.ndarray  # [E,A] i32 affinity-class matched-pod counts
+    # delta-maintenance bookkeeping (module docstring): provider id -> row, and which rows still represent live
+    # nodes (removed nodes are masked in place, never compacted, so the E
+    # axis — and the pow-2 pad family over it — is stable as E shrinks)
+    row_of: dict = field(default_factory=dict)
+    live: np.ndarray | None = None
+
+    def __post_init__(self):
+        if self.live is None:
+            self.live = np.ones(len(self.nodes), dtype=bool)
+        if not self.row_of and self.nodes:
+            self.row_of = {
+                n.state_node.provider_id: i for i, n in enumerate(self.nodes)
+            }
+
+    @property
+    def E(self):
+        return len(self.nodes)
+
+    def apply_delta(self, snap, dirty=(), removed=(), added=(),
+                    device_plan=None):
+        """Patch this snapshot in place instead of re-tensorizing the fleet.
+
+        ``dirty``: ExistingNodes (already present) whose rows are rebuilt
+        from live state; ``removed``: provider ids whose rows are masked;
+        ``added``: ExistingNodes appended as new rows. Dirty and added rows
+        are computed by running :func:`tensorize_existing` over exactly
+        those nodes and splicing the result, so a patched row is
+        bit-identical to a from-scratch build by construction. Raises
+        KeyError when a dirty node was never tensorized — the caller must
+        route such nodes through ``added`` or rebuild."""
+        dirty = list(dirty)
+        removed = list(removed)
+        added = list(added)
+        if dirty or added:
+            mini = tensorize_existing(snap, dirty + added, device_plan)
+        if dirty:
+            rows = np.empty(len(dirty), dtype=np.intp)
+            for j, node in enumerate(dirty):
+                r = self.row_of[node.state_node.provider_id]
+                rows[j] = r
+                self.nodes[r] = node
+            nd = len(dirty)
+            splice_rows(self.e_avail, rows, mini.e_avail[:nd])
+            splice_rows(self.e_npods, rows, mini.e_npods[:nd])
+            splice_rows(self.e_scnt, rows, mini.e_scnt[:nd])
+            splice_rows(self.e_decl, rows, mini.e_decl[:nd])
+            splice_rows(self.e_match, rows, mini.e_match[:nd])
+            splice_rows(self.e_aff, rows, mini.e_aff[:nd])
+            self.ge_ok[:, rows] = mini.ge_ok[:, :nd]
+            self.live[rows] = True
+        for pid in removed:
+            r = self.row_of.get(pid)
+            if r is None or not self.live[r]:
+                continue
+            self.live[r] = False
+            self.e_avail[r] = 0.0
+            self.ge_ok[:, r] = False
+            self.e_npods[r] = 0
+            self.e_scnt[r] = 0
+            self.e_decl[r] = 0
+            self.e_match[r] = 0
+            self.e_aff[r] = 0
+        if added:
+            k = len(dirty)
+            E0 = len(self.nodes)
+            self.e_avail = np.concatenate([self.e_avail, mini.e_avail[k:]])
+            self.ge_ok = np.concatenate([self.ge_ok, mini.ge_ok[:, k:]], axis=1)
+            self.e_npods = np.concatenate([self.e_npods, mini.e_npods[k:]])
+            self.e_scnt = np.concatenate([self.e_scnt, mini.e_scnt[k:]])
+            self.e_decl = np.concatenate([self.e_decl, mini.e_decl[k:]])
+            self.e_match = np.concatenate([self.e_match, mini.e_match[k:]])
+            self.e_aff = np.concatenate([self.e_aff, mini.e_aff[k:]])
+            self.live = np.concatenate(
+                [self.live, np.ones(len(added), dtype=bool)])
+            for j, node in enumerate(added):
+                self.nodes.append(node)
+                self.row_of[node.state_node.provider_id] = E0 + j
+        STATS["delta_applies"] += 1
+        STATS["delta_rows"] += len(dirty) + len(removed) + len(added)
+
+
+def tensorize_existing(snap: DeviceSnapshot, existing_nodes, device_plan=None):
+    """Compile ExistingNode capacity into the kernel's pre-loaded-bin
+    tensors. `snap` supplies the interned vocabulary/resource axes;
+    `device_plan` (waves) supplies the conflict/spread class indices whose
+    per-node counts come from each TopologyGroup's hostname domain map."""
+    return _tensorize_existing(snap, existing_nodes, device_plan)
+
+
+def _tensorize_existing(snap, existing_nodes, device_plan):
+    import time
+
+
+    t_start = time.perf_counter()
+    E = len(existing_nodes)
+    G = snap.G
+    R = len(snap.resources)
+    K = len(snap.keys)
+    CW = snap.g_decl.shape[1]
+    C = snap.g_sown.shape[1]
+    A = snap.g_aneed.shape[1]
+
+    e_avail = np.zeros((E, R), dtype=np.float32)
+    ge_ok = np.zeros((G, E), dtype=bool)
+    e_npods = np.zeros(E, dtype=np.int32)
+    e_scnt = np.zeros((E, C), dtype=np.int32)
+    e_decl = np.zeros((E, CW), dtype=np.uint32)
+    e_match = np.zeros((E, CW), dtype=np.uint32)
+    e_aff = np.zeros((E, A), dtype=np.int32)
+
+    e_mask = np.zeros((E, K, snap.W), dtype=np.uint32)
+    e_has = np.zeros((E, K), dtype=bool)
+    negative = 0
+    neg_example = None
+    for e, node in enumerate(existing_nodes):
+        avail = resutil.subtract(node.cached_available, node.requests)
+        for r, v in avail.items():
+            if r in snap.resources:
+                if v < 0.0:
+                    # a bound-pod total exceeding allocatable is a capacity-
+                    # accounting bug upstream — clamping keeps the kernel
+                    # sound (a full node just admits nothing) but the clamp
+                    # must be VISIBLE, not a silent max()
+                    negative += 1
+                    if neg_example is None:
+                        neg_example = (node.state_node.name, r, v)
+                e_avail[e, snap.resources.index(r)] = max(v, 0.0)
+        e_mask[e], e_has[e], _ = snap.mask_set(node.requirements)
+        e_npods[e] = len(node.state_node.pods)
+        hostname = node.state_node.hostname
+        if device_plan is not None:
+            for c, pair in enumerate(device_plan.anti_tgs_by_class):
+                direct, inverse = pair
+                if direct.domains.get(hostname, 0) > 0:
+                    e_match[e, c // WORD] |= np.uint32(1 << (c % WORD))
+                if inverse is not None and inverse.domains.get(hostname, 0) > 0:
+                    e_decl[e, c // WORD] |= np.uint32(1 << (c % WORD))
+            for c, tg in enumerate(device_plan.spread_tgs_by_class):
+                e_scnt[e, c] = tg.domains.get(hostname, 0)
+            for c, tg in enumerate(device_plan.aff_tgs_by_class):
+                e_aff[e, c] = tg.domains.get(hostname, 0)
+
+    # strict requirement compatibility over the interned masks: every key
+    # the group requires must be defined on the node AND overlap. Values a
+    # node carries outside the vocabulary mask to zero, which is exact for
+    # IN (the pod's interned values genuinely differ) and conservative for
+    # complement operators (routes to the host loop).
+    for g in range(G):
+        gm, gh = snap.g_mask[g], snap.g_has[g]
+        # a key overlaps if ANY word overlaps; required keys must be defined
+        ov = ((e_mask & gm[None]) != 0).any(axis=2)  # [E,K]
+        ge_ok[g] = (~gh[None, :] | (e_has & ov)).all(axis=1)
+
+    # taints + hostname checks: nodes share a handful of distinct taint
+    # profiles, so toleration is evaluated once per (profile, group), not
+    # per (node, group) — the E×G Python loop collapses to
+    # O(distinct-profiles × G) (a fleet of 1000 nodes typically has <5)
+    hreqs = [
+        snap.group_reqs[g].get_req(wk.HOSTNAME_LABEL)
+        if wk.HOSTNAME_LABEL in snap.group_reqs[g]
+        else None
+        for g in range(G)
+    ]
+    tol_cache: dict = {}  # taint fingerprint -> [G] bool tolerates
+    for e, node in enumerate(existing_nodes):
+        taints = node.state_node.taints()
+        fp = tuple((t.key, t.value, t.effect) for t in taints)
+        tol = tol_cache.get(fp)
+        if tol is None:
+            ts = Taints(taints)
+            tol = np.array(
+                [ts.tolerates(snap.groups[g][0]) is None for g in range(G)],
+                dtype=bool,
+            )
+            tol_cache[fp] = tol
+        ge_ok[:, e] &= tol
+        for g in range(G):
+            if hreqs[g] is not None and ge_ok[g, e]:
+                if not hreqs[g].has(node.state_node.hostname):
+                    ge_ok[g, e] = False
+
+    if negative:
+        import logging
+
+        STATS["negative_avail_total"] += negative
+        name, res, v = neg_example
+        logging.getLogger(__name__).warning(
+            "tensorize_existing clamped %d negative availabilities this "
+            "round (first: node %s %s=%s)", negative, name, res, v)
+    STATS["existing_calls"] += 1
+    STATS["existing_ms"] += (time.perf_counter() - t_start) * 1000.0
+    return ExistingSnapshot(
+        nodes=list(existing_nodes),
+        e_avail=e_avail,
+        ge_ok=ge_ok,
+        e_npods=e_npods,
+        e_scnt=e_scnt,
+        e_decl=e_decl,
+        e_match=e_match,
+        e_aff=e_aff,
+    )
+
+
+def kernel_args(snap: DeviceSnapshot, esnap: "ExistingSnapshot | None" = None,
+                Gp: int | None = None, Tp: int | None = None,
+                Ep: int | None = None, include_counts: bool = True) -> dict:
     """Padded solve_step argument dict (numpy) — the copy of the JAX
-    package's one assembly point, without the existing-node tensors
-    (``solve_step`` defaults them to one inert node).
+    package's one assembly point. With ``esnap`` it carries the
+    existing-node tensors (``ge_ok``, ``e_*``, E padded to ``Ep``);
+    without, ``solve_step`` leaves phase A out.
+
+    ``include_counts=False`` omits ``g_count``/``e_avail`` — the
+    consolidation probes carry those on their batch axis instead of the
+    shared snapshot.
 
     Padded types are infeasible by construction: zero allocatable fails
     every fit (pods >= 1) and their offerings carry the -1 "no domain"
@@ -288,8 +549,22 @@ def kernel_args(snap: DeviceSnapshot, Gp: int | None = None,
         m_overhead=snap.m_overhead,
         m_limits=snap.m_limits,
         m_minv=snap.m_minv,
-        g_count=pad(snap.g_count, (Gp,)),
     )
+    if include_counts:
+        args["g_count"] = pad(snap.g_count, (Gp,))
+    if esnap is not None:
+        if Ep is None:
+            Ep = bucket(max(esnap.E, 1), lo=8)
+        args.update(
+            ge_ok=pad(esnap.ge_ok, (Gp, Ep)),
+            e_npods=pad(esnap.e_npods, (Ep,)),
+            e_scnt=pad(esnap.e_scnt, (Ep, esnap.e_scnt.shape[1])),
+            e_decl=pad(esnap.e_decl, (Ep, esnap.e_decl.shape[1])),
+            e_match=pad(esnap.e_match, (Ep, esnap.e_match.shape[1])),
+            e_aff=pad(esnap.e_aff, (Ep, esnap.e_aff.shape[1])),
+        )
+        if include_counts:
+            args["e_avail"] = pad(esnap.e_avail, (Ep, R))
     return args
 
 
@@ -408,6 +683,17 @@ def intern_signature(sig: tuple) -> tuple:
             _SIG_INTERN.clear()
         _SIG_INTERN[sig] = canon = sig
     return canon
+
+
+def interned_signature(pod) -> tuple:
+    """``pod_signature`` with the ``_sig_cache`` memo and the intern pool
+    applied — the per-pod entry point every consumer outside the batch path
+    should use."""
+    d = pod.__dict__
+    sig = d.get("_sig_cache")
+    if sig is None:
+        sig = d["_sig_cache"] = intern_signature(pod_signature(pod))
+    return sig
 
 
 def batch_signatures(pods) -> list:
@@ -770,42 +1056,75 @@ def _build_type_side(templates, instance_types_by_pool, group_reqs, resources):
     return cached
 
 def tensorize(pods, templates, instance_types_by_pool, daemon_overhead=None,
-              limits=None):
+              limits=None, device_plan=None):
     """Compile a scheduling snapshot to tensors.
 
-    pods: eligible pods (caller pre-filters with device_eligible)
+    pods: eligible pods (caller pre-filters with device_eligible); ignored
+        when device_plan is given
     templates: [ClaimTemplate] in weight order
     instance_types_by_pool: nodepool name -> [InstanceType]
     daemon_overhead: nodepool name -> ResourceList
     limits: nodepool name -> ResourceList (remaining resources; absent = inf)
+    device_plan: pre-compiled waves.WavesPlan (topology-compiled subgroups
+        with extra requirements / bin caps / conflict classes), groups
+        already in the order the scan should process them
     """
     daemon_overhead = daemon_overhead or {}
     limits = limits or {}
 
-    # ---- group pods by signature, FFD order ----
-    # the signature is cached on the pod object: the provisioner re-solves
-    # the same (immutable-spec) Pod instances round after round; clones
-    # (which relaxation/injection mutate) are fresh objects without the
-    # cached attribute
-    groups = sorted(
-        group_by_signature(pods),
-        key=lambda g: (
-            -g[0].effective_requests().get(resutil.CPU, 0.0),
-            -g[0].effective_requests().get(resutil.MEMORY, 0.0),
-        ),
-    )
-    g_tier_list = [0] * len(groups)
-    group_reqs = [pod_requirements(g[0]) for g in groups]
-    # group_by_signature cached the signature on every rep
-    row_keys = [(g[0].__dict__["_sig_cache"], ()) for g in groups]
-    g_bin_cap_list = [1 << 30] * len(groups)
-    g_single_list = [False] * len(groups)
-    g_decl = np.zeros((len(groups), 1), dtype=np.uint32)
-    g_match = np.zeros((len(groups), 1), dtype=np.uint32)
-    g_sown = np.full((len(groups), 1), UNCAPPED, dtype=np.int32)
-    g_smatch = np.zeros((len(groups), 1), dtype=bool)
-    g_aneed = np.zeros((len(groups), 1), dtype=bool)
-    g_amatch = np.zeros((len(groups), 1), dtype=bool)
+    if device_plan is not None:
+        device_groups = device_plan.device_groups
+        groups = [dg.pods for dg in device_groups]
+        group_reqs = []
+        row_keys = []
+        for dg in device_groups:
+            rep = dg.pods[0]
+            reqs = pod_requirements(rep)
+            if dg.extra_reqs:
+                reqs = reqs.copy()
+                reqs.add(*dg.extra_reqs)
+            group_reqs.append(reqs)
+            sig = interned_signature(rep)
+            # waves extra reqs (zone pins/IN-sets) key the row alongside
+            # the spec signature: the same deployment template lands in
+            # different zone subgroups with different packed rows
+            extras_fp = tuple(
+                (r.key, r.complement, tuple(sorted(r.values)),
+                 r.greater_than, r.less_than, r.min_values)
+                for r in dg.extra_reqs
+            )
+            row_keys.append((sig, extras_fp))
+        g_bin_cap_list = [dg.bin_cap for dg in device_groups]
+        g_single_list = [dg.single_bin for dg in device_groups]
+        g_decl, g_match = device_plan.class_masks()
+        g_sown, g_smatch = device_plan.spread_tensors()
+        g_aneed, g_amatch = device_plan.aff_tensors()
+        g_tier_list = [0] * len(groups)
+    else:
+        # ---- group pods by signature, FFD order ----
+        # the signature is cached on the pod object: the provisioner
+        # re-solves the same (immutable-spec) Pod instances round after
+        # round; clones (which relaxation/injection mutate) are fresh
+        # objects without the cached attribute
+        groups = sorted(
+            group_by_signature(pods),
+            key=lambda g: (
+                -g[0].effective_requests().get(resutil.CPU, 0.0),
+                -g[0].effective_requests().get(resutil.MEMORY, 0.0),
+            ),
+        )
+        g_tier_list = [0] * len(groups)
+        group_reqs = [pod_requirements(g[0]) for g in groups]
+        # group_by_signature cached the signature on every rep
+        row_keys = [(g[0].__dict__["_sig_cache"], ()) for g in groups]
+        g_bin_cap_list = [1 << 30] * len(groups)
+        g_single_list = [False] * len(groups)
+        g_decl = np.zeros((len(groups), 1), dtype=np.uint32)
+        g_match = np.zeros((len(groups), 1), dtype=np.uint32)
+        g_sown = np.full((len(groups), 1), UNCAPPED, dtype=np.int32)
+        g_smatch = np.zeros((len(groups), 1), dtype=bool)
+        g_aneed = np.zeros((len(groups), 1), dtype=bool)
+        g_amatch = np.zeros((len(groups), 1), dtype=bool)
     group_demand = [g[0].effective_requests() for g in groups]
 
     # ---- resource dimension union ----

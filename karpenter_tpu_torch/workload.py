@@ -1,10 +1,17 @@
-"""The headline provisioning burst, built from the port's own objects.
+"""The port's two workloads, built from its own objects.
 
-The copy of ``bench.py``'s ``build_workload``: ``n_pods`` pending pods in
-24 deployment shapes (six cpu/memory sizes × four selectors: none,
-amd64, arm64, spot), two NodePools (``general``, and ``spot`` at weight
-10) and ``benchmark_catalog(n_types)``. The headline is 50,000 pods × 500
-types.
+- **headline** (``build_workload``, the copy of ``bench.py``'s): ``n_pods``
+  pending pods in 24 deployment shapes (six cpu/memory sizes × four
+  selectors: none, amd64, arm64, spot), two NodePools (``general``, and
+  ``spot`` at weight 10) and ``benchmark_catalog(n_types)``. The headline
+  is 50,000 pods × 500 types on an empty cluster.
+- **live round** (``live_cluster`` + ``live_round``): the headline's
+  claims launched as a running cluster — one node per claim, on the
+  instance type and offering the kwok provider would launch — and a burst
+  of the upstream scheduling benchmark's 1/6 constraint mix
+  (``diverse_pods``, the copy of ``perf/configs.py``'s) provisioned onto
+  it, with a real ``Topology`` and every node an ``ExistingNode``. At
+  full size: 1,128 nodes and 5,000 pods (seed 42).
 """
 
 from __future__ import annotations
@@ -48,3 +55,162 @@ def build_workload(n_pods=50_000, n_types=500):
     templates = [ClaimTemplate(p) for p in pools]
     its = {p.name: catalog for p in pools}
     return pods, templates, its
+
+
+def _pod(name, cpu, mem_gib, **kw):
+    from karpenter_tpu_torch.api.objects import ObjectMeta, Pod
+
+    return Pod(
+        metadata=ObjectMeta(name=name, labels=kw.pop("labels", {})),
+        requests={"cpu": cpu, "memory": mem_gib * GIB},
+        **kw,
+    )
+
+
+def diverse_pods(count: int, seed: int = 42):
+    """The reference benchmark's 1/6 constraint mix, faithfully randomized
+    (scheduling_benchmark_test.go makeDiversePods:234-248 + the seeded
+    generators :250-363): per-pod random labels over 7 values, random
+    cpu/memory from the reference's menus, spread selectors drawn
+    independently of the pod's own labels (cross-group counting), affinity
+    selectors likewise (cross-group chains), and a single shared
+    anti-affinity cohort (app=nginx, one pod per hostname). The copy of
+    ``perf/configs.py``'s ``diverse_pods``: same seed, same pods."""
+    import random
+
+    from karpenter_tpu_torch.api import labels as wk
+    from karpenter_tpu_torch.api.objects import (
+        Affinity,
+        LabelSelector,
+        PodAffinity,
+        PodAffinityTerm,
+        TopologySpreadConstraint,
+    )
+
+    r = random.Random(seed)
+    VALUES = ("a", "b", "c", "d", "e", "f", "g")
+    CPUS = (0.1, 0.25, 0.5, 1.0, 1.5)  # randomCPU():376 (millicores)
+    MEMS = (100, 256, 512, 1024, 2048, 4096)  # randomMemory():371 (Mi)
+
+    def rnd_requests():
+        return r.choice(CPUS), r.choice(MEMS) / 1024.0
+
+    def rnd_labels():
+        return {"my-label": r.choice(VALUES)}
+
+    def rnd_aff_labels():
+        return {"my-affininity": r.choice(VALUES)}  # [sic], the ref's typo
+
+    pods = []
+
+    def generic(n, tag):
+        for i in range(n):
+            cpu, mem = rnd_requests()
+            pods.append(_pod(f"g{tag}-{i}", cpu, mem, labels=rnd_labels()))
+
+    def spread(n, key, tag):
+        for i in range(n):
+            cpu, mem = rnd_requests()
+            pods.append(_pod(
+                f"s{tag}-{i}", cpu, mem, labels=rnd_labels(),
+                topology_spread_constraints=[TopologySpreadConstraint(
+                    max_skew=1, topology_key=key, when_unsatisfiable="DoNotSchedule",
+                    label_selector=LabelSelector(match_labels=rnd_labels()))]))
+
+    def affinity(n, key, tag):
+        for i in range(n):
+            cpu, mem = rnd_requests()
+            pods.append(_pod(
+                f"a{tag}-{i}", cpu, mem, labels=rnd_aff_labels(),
+                affinity=Affinity(pod_affinity=PodAffinity(required=[
+                    PodAffinityTerm(topology_key=key,
+                                    label_selector=LabelSelector(
+                                        match_labels=rnd_aff_labels()))]))))
+
+    def anti(n, key, tag):
+        labels = {"app": "nginx"}
+        for i in range(n):
+            cpu, mem = rnd_requests()
+            pods.append(_pod(
+                f"x{tag}-{i}", cpu, mem, labels=dict(labels),
+                affinity=Affinity(pod_anti_affinity=PodAffinity(required=[
+                    PodAffinityTerm(topology_key=key,
+                                    label_selector=LabelSelector(
+                                        match_labels=dict(labels)))]))))
+
+    sixth = count // 6
+    generic(sixth, "0")
+    spread(sixth, wk.TOPOLOGY_ZONE_LABEL, "z")
+    spread(sixth, wk.HOSTNAME_LABEL, "h")
+    affinity(sixth, wk.HOSTNAME_LABEL, "h")
+    affinity(sixth, wk.TOPOLOGY_ZONE_LABEL, "z")
+    anti(sixth, wk.HOSTNAME_LABEL, "h")
+    generic(count - len(pods), "fill")
+    return pods
+
+
+def live_cluster(claims) -> list:
+    """One registered, initialized ``StateNode`` per claim of a solve, as
+    the kwok provider launches it (``cloudprovider/kwok.py`` ``create``):
+    the instance type and offering of ``cheapest_effective_offering`` over
+    the claim's types, requirements and requests; the claim's labels plus
+    that offering's zone and capacity type, the type's name, the nodepool
+    and the claim's hostname; the type's capacity and allocatable; and the
+    claim's pods bound to it."""
+    from karpenter_tpu_torch.api import labels as wk
+    from karpenter_tpu_torch.api.objects import Node, ObjectMeta
+    from karpenter_tpu_torch.cloudprovider.types import (
+        cheapest_effective_offering,
+    )
+    from karpenter_tpu_torch.state.statenode import StateNode
+
+    nodes = []
+    for claim in claims:
+        best = cheapest_effective_offering(
+            claim.instance_types, claim.requirements, claim.requests)
+        if best is None:
+            raise ValueError(f"no instance type can launch {claim}")
+        it, offering = best
+        name = claim.hostname
+        labels = {
+            **claim.template.labels,
+            **claim.requirements.labels(),
+            wk.NODEPOOL_LABEL: claim.template.nodepool_name,
+            wk.INSTANCE_TYPE_LABEL: it.name,
+            wk.TOPOLOGY_ZONE_LABEL: offering.zone,
+            wk.CAPACITY_TYPE_LABEL: offering.capacity_type,
+            wk.HOSTNAME_LABEL: name,
+            wk.NODE_REGISTERED_LABEL: "true",
+            wk.NODE_INITIALIZED_LABEL: "true",
+        }
+        sn = StateNode(provider_id=f"kwok://{name}")
+        sn.node = Node(metadata=ObjectMeta(name=name, labels=labels),
+                       provider_id=sn.provider_id,
+                       capacity=dict(it.capacity),
+                       allocatable=dict(it.allocatable()))
+        for pod in claim.pods:
+            pod.node_name = name
+            sn.pods[pod.key()] = pod
+        nodes.append(sn)
+    return nodes
+
+
+def live_round(claims, templates, instance_types, n_pods=5_000, seed=42):
+    """(burst, topology, existing_nodes) of one provisioning round on the
+    cluster ``live_cluster(claims)`` builds: ``diverse_pods(n_pods, seed)``
+    pending, the topology assembled as the provisioner assembles it (the
+    domain universe of every template over its pool's types, the burst
+    registered), and every node an ``ExistingNode`` over that topology."""
+    from karpenter_tpu_torch.controllers.provisioning.provisioner import (
+        collect_domains,
+    )
+    from karpenter_tpu_torch.models.existing import ExistingNode
+    from karpenter_tpu_torch.models.topology import Topology
+
+    burst = diverse_pods(n_pods, seed)
+    domains: dict = {}
+    for t in templates:
+        collect_domains(domains, t, instance_types[t.nodepool_name])
+    topology = Topology(domains=domains, pods=burst)
+    existing = [ExistingNode(sn, topology) for sn in live_cluster(claims)]
+    return burst, topology, existing

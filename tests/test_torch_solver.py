@@ -156,12 +156,14 @@ def test_bin_axis_doubling_matches():
 
 
 def test_unsupported_inputs_raise():
+    """The disruption snapshot and the fused admission round are later
+    slices of the port: both inputs raise rather than being ignored."""
     tp, tt, tits = port_side("headline")
     solver = TorchSolver(device="cpu")
-    with pytest.raises(NotImplementedError, match="existing nodes"):
-        solver.solve(tp[:10], tt, tits, existing_nodes=[object()])
-    with pytest.raises(NotImplementedError, match="topology"):
-        solver.solve(tp[:10], tt, tits, topology=object())
+    with pytest.raises(NotImplementedError, match="existing_base"):
+        solver.solve(tp[:10], tt, tits, existing_base=object())
+    with pytest.raises(NotImplementedError, match="tier_of"):
+        solver.solve(tp[:10], tt, tits, tier_of={})
 
 
 def test_signatures_match_jax_package():
