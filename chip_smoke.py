@@ -43,11 +43,30 @@ It imports nothing of JAX or of ``karpenter_tpu``.
    cohort may share a node. The round's last dispatch is re-run on the
    card (sync debug mode) and on the CPU plain path, bit-equal, and its
    own G×T and 1×Bp products join the compat cases.
+7. The consolidation probe, the third main path, on two fleets that
+   ``workload.underutilized_fleet`` builds with ``TorchSolver()``:
+   **global** (2,000 nodes, one 5-cpu pod each: ``perf/run.py``'s global
+   consolidation fleet) through ``batched_feasible_prefix`` (the first
+   100 candidates), ``batched_single_feasible`` (all) and
+   ``joint_retirement_plan(want_singles=True)`` with the LP relax rung
+   off (the FFD ladder: prefix rows plus single rows) and on; and
+   **global-xl** (10,000 nodes × 128 groups, 9,984 nodes) through one
+   joint round with the relax rung on over the 4,096 cheapest
+   budget-allowed candidates, which must ship through the rung. Each
+   call runs with the launch counts set to 0 just before and read just
+   after (compat must launch 2 + Gp times per chunk wherever rows are
+   dispatched); every row dispatch is re-run on the CPU plain path
+   (bit-equal ``placed_g`` and ``used``) and every relax decision too
+   (the same ship or fallback cause, selection and displacement); every
+   answer is checked against the store in exact arithmetic (no survivor
+   over its allocatable, every displaced pod placed, no pod on a
+   retiree). A chunk of the ladder and the relax LP are traced, and the
+   probe's own G×T and 1×(Np·Bp) products join the compat cases.
 
 Prints one ``{"kernels": [...]}`` line, one ``{"solve": ...}`` line, one
-``{"live_round": ...}`` line, the card line, and as its last line
-``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
-so does a machine without CUDA.
+``{"live_round": ...}`` line, one ``{"consolidation": ...}`` line, the
+card line, and as its last line ``{"ok": true, "device": {...}}``. Any
+failure raises and exits non-zero; so does a machine without CUDA.
 """
 
 from __future__ import annotations
@@ -68,6 +87,14 @@ VECTOR_OPS_PER_S = 67e12
 
 N_PODS, N_TYPES = 50_000, 500
 LIVE_PODS, LIVE_SEED = 5_000, 42
+# the consolidation fleets (perf/run.py run_global_consolidation's
+# PERF_GLOBAL_NODES default, and run_global_xl's config4_xl_env(10000,
+# 128)) and the disruption methods' candidate caps
+# (karpenter_tpu/controllers/disruption/methods.py)
+GLOBAL_NODES = 2_000
+XL_NODES, XL_GROUPS = 10_000, 128
+MULTI_NODE_CANDIDATE_CAP = 100
+GLOBAL_CANDIDATE_CAP = 4096
 STEP_OUTPUTS = ("assign", "assign_e", "used", "tmpl", "F", "price", "npods")
 
 # compat cases beside the main path's own inputs, (G, T, K, W): a cluster
@@ -438,6 +465,324 @@ def live_round_phase(claims, templates, its, cuda_kernels, kernels) -> tuple:
     return line, cases, launches, trace
 
 
+class BundleMemo:
+    """The entry points' snapshot-cache seam: the first call on a fleet
+    builds the ``DisruptionSnapshot`` (timed), later calls get the same
+    one."""
+
+    def __init__(self, cons):
+        self.cons = cons
+        self.bundle = None
+        self.build_ms = 0.0
+
+    def get(self, provisioner, cluster, store, candidates, registry=None):
+        if self.bundle is None:
+            t0 = time.perf_counter()
+            self.bundle = self.cons.build_disruption_snapshot(
+                provisioner, cluster, store, candidates)
+            self.build_ms = (time.perf_counter() - t0) * 1e3
+        return self.bundle
+
+
+def check_plan_in_store(store, plan, bundle, label: str) -> None:
+    """A joint plan against the store, in exact arithmetic: no pod lands
+    on a retiree, every pod of a retiree is placed (on a survivor or the
+    claims' overflow), no survivor goes over its allocatable."""
+    retired = {c.provider_id for c in plan.selected}
+    nodes = {n.provider_id: n for n in store.list("nodes")}
+    pid_of = {n.name: n.provider_id for n in nodes.values()}
+    used = {pid: {} for pid in nodes}
+    displaced = 0
+    for p in store.list("pods"):
+        if not p.node_name:
+            continue
+        pid = pid_of[p.node_name]
+        if pid in retired:
+            displaced += 1
+            continue
+        for r, v in p.requests.items():
+            used[pid][r] = used[pid].get(r, 0.0) + v
+    placed = sum(plan.overflow.values())
+    for pid, g, count in plan.displacement:
+        check(pid not in retired, f"{label}: a pod lands on retiree {pid}")
+        placed += count
+        for r, v in bundle.snap.group_demand[g].items():
+            used[pid][r] = used[pid].get(r, 0.0) + count * v
+    check(placed == displaced,
+          f"{label}: {placed} pods placed of {displaced} displaced")
+    for pid, node in nodes.items():
+        for r, v in used[pid].items():
+            check(v <= node.allocatable.get(r, 0.0) + 1e-6,
+                  f"{label}: {pid} over its allocatable in {r}")
+
+
+def consolidation_phase(cuda_kernels, kernels) -> tuple:
+    """The consolidation probe on the card: ``(line, cases, launches)``
+    — the printed record, the probe's own compat inputs, and the compat
+    launches of every call."""
+    import os
+
+    import torch
+
+    from karpenter_tpu_torch.api.nodepool import REASON_UNDERUTILIZED
+    from karpenter_tpu_torch.controllers.disruption.helpers import (
+        build_disruption_budgets,
+        within_budget,
+    )
+    from karpenter_tpu_torch.ops import consolidate as cons
+    from karpenter_tpu_torch.ops import relax
+    from karpenter_tpu_torch.workload import underutilized_fleet
+
+    real_dispatch = cons.dispatch_counterfactual_rows
+    real_relax, real_lp = relax.joint_relax_plan, relax.joint_lp
+    dispatches, decisions, lps = [], [], []
+
+    def recording_dispatch(shared, Gp, Ep, e_avail, max_minv, g_count_k,
+                           e_zero_cols, e_free=None, max_bins=1):
+        t0 = time.perf_counter()
+        out = real_dispatch(shared, Gp, Ep, e_avail, max_minv, g_count_k,
+                            e_zero_cols, e_free=e_free, max_bins=max_bins)
+        dispatches.append(dict(
+            args=(shared, Gp, Ep, e_avail, max_minv, g_count_k, e_zero_cols),
+            max_bins=max_bins, out=out,
+            ms=(time.perf_counter() - t0) * 1e3))
+        return out
+
+    def recording_relax(bundle, candidates, col_arr, contrib, cum, timings,
+                        device=None):
+        plan, cause = real_relax(bundle, candidates, col_arr, contrib, cum,
+                                 timings, device=device)
+        decisions.append(dict(
+            inputs=(bundle, candidates, col_arr, contrib, cum),
+            plan=plan, cause=cause, k_ub=relax.RELAX_STATS["last_k_ub"],
+            k_frac=relax.RELAX_STATS["last_k_frac"],
+            iters=relax.RELAX_STATS["last_iters"], timings=dict(timings),
+            ships=relax.RELAX_STATS["ships"]))
+        return plan, cause
+
+    def recording_lp(t, max_iters, tol, rho):
+        if t["d"].is_cuda:  # not the CPU re-run's
+            lps.append((t, max_iters, tol, rho))
+        return real_lp(t, max_iters, tol, rho)
+
+    def relax_decision(plan, cause):
+        if plan is None:
+            return ("fallback", cause)
+        return ("ship", list(plan.selected_idx), plan.displacement,
+                plan.overflow, plan.n_claims)
+
+    def run(label, fn, knob, memo):
+        """One entry-point call with the launch counts zeroed just before
+        and read just after, its row dispatches re-run on the CPU plain
+        path and its relax decision re-made there."""
+        os.environ["KARPENTER_RELAX"] = knob
+        dispatches.clear()
+        decisions.clear()
+        built_here = memo.bundle is None
+        cuda_kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(cuda_kernels.LAUNCHES)
+        for name, n in launches.items():
+            total_launches[name] += n
+        check(result is not None, f"{label}: the probe could not express "
+                                  "the fleet")
+        rows = sum(d["args"][5].shape[0] for d in dispatches)
+        chunks = sum(-(-d["args"][5].shape[0] // cons.PROBE_CHUNK_ROWS)
+                     for d in dispatches)
+        Gp = dispatches[0]["args"][1] if dispatches else None
+        if dispatches:
+            check(launches["compat"] == chunks * (2 + Gp),
+                  f"{label}: compat launches {launches['compat']} != "
+                  f"(2 + Gp) × {chunks} chunks")
+        else:
+            check(launches["compat"] == 0, f"{label}: compat launched "
+                                           "with no rows dispatched")
+        # the CPU plain path, dispatch by dispatch: bit-equal
+        cpu_ms = 0.0
+        for d in dispatches:
+            shared, Gp_, Ep, e_avail, mm, gk, cols = d["args"]
+            t1 = time.perf_counter()
+            want = real_dispatch({k: v.cpu() for k, v in shared.items()},
+                                 Gp_, Ep, e_avail, mm, gk, cols,
+                                 max_bins=d["max_bins"])
+            cpu_ms += (time.perf_counter() - t1) * 1e3
+            for a, b in zip(d["out"], want):
+                check(a.shape == b.shape and np.array_equal(a, b),
+                      f"{label}: cuda and cpu probe rows differ")
+        rec = dict(rows=rows, chunks=chunks, wall_ms=wall_ms,
+                   snapshot_ms=memo.build_ms if built_here else 0.0,
+                   dispatch_ms=sum(d["ms"] for d in dispatches),
+                   compat_launches=launches["compat"],
+                   compat_per_chunk=(launches["compat"] / chunks
+                                     if chunks else 0),
+                   cpu_dispatch_ms=cpu_ms)
+        for dec in decisions:
+            t1 = time.perf_counter()
+            cpu_plan, cpu_cause = real_relax(*dec["inputs"], {},
+                                             device="cpu")
+            rec["relax_cpu_ms"] = (time.perf_counter() - t1) * 1e3
+            check(relax_decision(cpu_plan, cpu_cause)
+                  == relax_decision(dec["plan"], dec["cause"]),
+                  f"{label}: the relax rung decides differently on the "
+                  f"card ({dec['cause']}) and the CPU ({cpu_cause})")
+            rec.update(relax_cause=dec["cause"] or "shipped",
+                       k_ub=dec["k_ub"], k_ub_cpu=relax.RELAX_STATS[
+                           "last_k_ub"],
+                       lp_objective=dec["k_frac"],
+                       lp_objective_cpu=relax.RELAX_STATS["last_k_frac"],
+                       pdhg_iters=dec["iters"],
+                       pdhg_blocks=dec["timings"].get("relax_blocks"),
+                       pdhg_wall_ms=dec["timings"].get("relax_lp_ms"),
+                       round_ms=dec["timings"].get("relax_round_ms"))
+            check(rec["k_ub"] == rec["k_ub_cpu"],
+                  f"{label}: k_ub {rec['k_ub']} on the card, "
+                  f"{rec['k_ub_cpu']} on the CPU")
+        rec["criteria_ms"] = (wall_ms - rec["snapshot_ms"]
+                              - rec["dispatch_ms"]
+                              - sum(d["timings"].get("relax_ms", 0.0)
+                                    for d in decisions))
+        return result, rec
+
+    cons.dispatch_counterfactual_rows = recording_dispatch
+    relax.joint_relax_plan, relax.joint_lp = recording_relax, recording_lp
+    knob = os.environ.get("KARPENTER_RELAX")
+    total_launches = {name: 0 for name in cuda_kernels.LAUNCHES}
+    fleets: dict = {}
+    traces: dict = {}
+    try:
+        # ---- global: 2,000 nodes ----
+        t0 = time.perf_counter()
+        store, cluster, prov, pool = underutilized_fleet(GLOBAL_NODES)
+        build_ms = (time.perf_counter() - t0) * 1e3
+        check(prov.solver.device.type == "cuda", "fleet solver not on cuda")
+        memo = BundleMemo(cons)
+        calls = {}
+        capped = pool[:MULTI_NODE_CANDIDATE_CAP]
+        (k, definitive), calls["prefix"] = run(
+            "global prefix", lambda: cons.batched_feasible_prefix(
+                prov, cluster, store, capped, cache=memo,
+                build_candidates=pool), "0", memo)
+        bundle = memo.bundle
+        check(k >= 2 and definitive, f"global prefix: k={k}, "
+                                     f"definitive={definitive}")
+        # the answer itself: the first k candidates' pods place exactly
+        cols = np.asarray(bundle.columns_for(capped))
+        contrib = bundle.contribs_for(capped)
+        surv = np.asarray(bundle.esnap.live, bool).copy()
+        surv[cols[:k]] = False
+        check(cons._greedy_displace(
+            bundle, surv, contrib[:k].sum(0), allow_claim=True) is not None,
+            f"global prefix: candidates[:{k}] do not place exactly")
+        calls["prefix"].update(k=k, definitive=definitive)
+        prefix_ladder = dispatches[0]
+        (mask, definitive), calls["single"] = run(
+            "global single", lambda: cons.batched_single_feasible(
+                prov, cluster, store, pool, cache=memo), "0", memo)
+        check(mask.any(), "global single: no candidate consolidates")
+        calls["single"].update(feasible=int(mask.sum()),
+                               definitive=definitive)
+        for name, knob_v in (("ladder", "0"), ("relax", "1")):
+            plan, calls[name] = run(
+                f"global {name}", lambda: cons.joint_retirement_plan(
+                    prov, cluster, store, pool, cache=memo,
+                    want_singles=True), knob_v, memo)
+            check(plan.viable, f"global {name}: {plan.reason}")
+            check_plan_in_store(store, plan, bundle, f"global {name}")
+            if name == "ladder":
+                check(plan.solver == "ladder" and not plan.relax_fallback,
+                      "global ladder: the relax rung ran with it off")
+                ladder = dispatches[0]
+            calls[name].update(
+                selected=len(plan.selected_idx), definitive=plan.definitive,
+                solver=plan.solver, relax_fallback=plan.relax_fallback,
+                delete_only=plan.delete_only, k_device=plan.k_device)
+        fleets["global"] = dict(
+            nodes=GLOBAL_NODES, candidates=len(pool), G=bundle.snap.G,
+            Gp=prefix_ladder["args"][1], Ep=prefix_ladder["args"][2],
+            T=bundle.snap.T, E=bundle.esnap.E, build_ms=build_ms,
+            snapshot_ms=memo.build_ms, calls=calls)
+
+        # the ladder's first chunk, at 128 rows and at 4, under the
+        # profiler (kernels per chunk whatever its rows), after one call
+        # with host reads forbidden
+        shared, Gp, Ep, e_avail, mm, gk, cols_k = ladder["args"]
+        e_master = torch.zeros((Ep, e_avail.shape[1]), device="cuda")
+        e_master[:e_avail.shape[0]] = torch.from_numpy(
+            np.asarray(e_avail, np.float32)).cuda()
+        for label, rows in (("chunk_128", min(cons.PROBE_CHUNK_ROWS,
+                                                len(gk))),
+                            ("chunk_4", 4)):
+            varying = cons.chunk_rows(e_master, gk, cols_k, None, 0, rows, Gp)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                kernels.probe_step(varying, shared, ladder["max_bins"], mm)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            traces[label] = device_times(
+                lambda: kernels.probe_step(varying, shared,
+                                           ladder["max_bins"], mm), 3)
+        lp_global = lps[-1]
+        Np = cons._pow2(cons.PROBE_CHUNK_ROWS, lo=4)
+        cases = [("probe GxT", [shared[k] for k in (
+                     "g_mask", "g_has", "g_tol", "t_mask", "t_has",
+                     "t_tol")]),
+                 ("probe 1xNpB", bins_case(shared, bundle.snap.G,
+                                           Np * ladder["max_bins"],
+                                           kernels))]
+        del store, cluster, prov, pool, memo, bundle
+
+        # ---- global-xl: 10,000 nodes × 128 groups ----
+        t0 = time.perf_counter()
+        store, cluster, prov, pool = underutilized_fleet(XL_NODES, XL_GROUPS)
+        build_ms = (time.perf_counter() - t0) * 1e3
+        budgets = build_disruption_budgets(cluster, store, prov.clock)
+        cands = within_budget(budgets, REASON_UNDERUTILIZED,
+                              pool)[:GLOBAL_CANDIDATE_CAP]
+        memo = BundleMemo(cons)
+        ships = relax.RELAX_STATS["ships"]
+        lps.clear()
+        plan, rec = run(
+            "global-xl relax", lambda: cons.joint_retirement_plan(
+                prov, cluster, store, cands, cache=memo,
+                build_candidates=pool), "1", memo)
+        check(decisions[0]["ships"] == ships + 1 and plan.viable
+              and plan.solver == "relax",
+              f"global-xl: the relax rung did not ship ({plan.reason}, "
+              f"{relax.RELAX_STATS['last_fallback']})")
+        check_plan_in_store(store, plan, memo.bundle, "global-xl relax")
+        rec.update(selected=len(plan.selected_idx), solver=plan.solver,
+                   relax_fallback=plan.relax_fallback,
+                   definitive=plan.definitive, delete_only=plan.delete_only)
+        # the relax LPs of both fleets under the profiler, and by CUDA
+        # events
+        for label, (t, iters, tol, rho) in (("pdhg_global", lp_global),
+                                            ("pdhg_xl", lps[-1])):
+            traces[label] = device_times(
+                lambda: real_lp(t, iters, tol, rho), 3)
+            traces[label + "_event_ms"] = time_ms(
+                lambda: real_lp(t, iters, tol, rho), reps=5, inner=1)
+        t = lps[-1][0]
+        fleets["global_xl"] = dict(
+            nodes=len(store.list("nodes")), candidates=len(cands),
+            pool=len(pool), G=memo.bundle.snap.G, E=memo.bundle.esnap.E,
+            Ec=int(t["capR"].shape[0]), Np=int(t["w"].shape[0]),
+            build_ms=build_ms, snapshot_ms=memo.build_ms,
+            calls={"relax": rec})
+    finally:
+        cons.dispatch_counterfactual_rows = real_dispatch
+        relax.joint_relax_plan, relax.joint_lp = real_relax, real_lp
+        if knob is None:
+            os.environ.pop("KARPENTER_RELAX", None)
+        else:
+            os.environ["KARPENTER_RELAX"] = knob
+    line = {"consolidation": {**fleets, "traces": traces}}
+    return line, cases, total_launches
+
+
 def main() -> int:
     import torch
 
@@ -542,6 +887,12 @@ def main() -> int:
     live_line, live_cases, live_launches, live_trace = live_round_phase(
         res.new_claims, templates, its, cuda_kernels, kernels)
 
+    # ---- the third main path: the consolidation probe ----
+    t0 = time.perf_counter()
+    cons_line, cons_cases, cons_launches = consolidation_phase(
+        cuda_kernels, kernels)
+    cons_line["consolidation"]["phase_s"] = time.perf_counter() - t0
+
     # ---- every kernel against its plain version, on the card ----
     _, K, W = args_gpu["g_mask"].shape
     gt_in = [args_gpu[k] for k in ("g_mask", "g_has", "g_tol",
@@ -550,7 +901,7 @@ def main() -> int:
     rng = np.random.default_rng(0)
     timed = [("main GxT", gt_in), ("main GxM", gm_in),
              ("main 1xB", bins_case(args_gpu, snap.G, Bp, kernels)),
-             *live_cases,
+             *live_cases, *cons_cases,
              ("scale " + "x".join(map(str, SCALE_SHAPE)),
               compat_case(rng, *SCALE_SHAPE, dev))]
     cases = timed + [("x".join(map(str, shape)), compat_case(rng, *shape, dev))
@@ -582,9 +933,11 @@ def main() -> int:
         "route": "cuda",
         "source": "karpenter_tpu_torch/csrc/compat.cu",
         "replaces": "karpenter_tpu/ops/pallas_kernels.py:62",
-        "launches": launches["compat"] + live_launches["compat"],
+        "launches": (launches["compat"] + live_launches["compat"]
+                     + cons_launches["compat"]),
         "launches_by_path": {"headline": launches["compat"],
-                             "live_round": live_launches["compat"]},
+                             "live_round": live_launches["compat"],
+                             "consolidation": cons_launches["compat"]},
         "max_abs_err": 0 if mismatches == 0 else 1,
         "tolerance": "exact (one bool per cell)",
         "mismatches": mismatches,
@@ -625,6 +978,7 @@ def main() -> int:
     live_line["live_round"]["script_s"] = time.perf_counter() - t_script
     print(json.dumps(solve_line))
     print(json.dumps(live_line))
+    print(json.dumps(cons_line))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

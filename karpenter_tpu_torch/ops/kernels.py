@@ -16,6 +16,16 @@ the same f32 expression and matches the JAX package bit for bit:
   inside the loop reads a value back to the host (no ``.item()``, no
   ``bool(tensor)``, no boolean-mask indexing), so on the card the whole
   solve queues asynchronously and the caller reads one buffer back.
+- ``pack`` carries a leading row axis ``N`` on every piece of state that
+  a counterfactual changes: the group counts, the existing nodes'
+  availability and load, and every bin. ``solve_step`` is the ``N = 1``
+  case; ``probe_step`` is the consolidation probe, the JAX package's
+  ``jax.vmap`` of ``solve_step`` over ``{g_count, e_avail}``
+  (``karpenter_tpu/ops/consolidate.py`` ``_batched_kernel``): feasibility
+  runs once for all rows, the pack loop once over the group rows with
+  every row's bins in one ``[1, N·B]`` compat product per group row, so
+  a chunk costs the launches of one solve whatever its row count. A pick
+  by ``argmax`` becomes a gather along the row axis.
 
 Where the two frameworks differ and this module compensates:
 
@@ -28,7 +38,7 @@ Where the two frameworks differ and this module compensates:
   patterns (``from_kernel_args``), and only ``&``, ``|`` and ``!= 0`` are
   applied to them;
 - a 0-d tensor used as an index may be read back to the host: rows picked
-  by a device-side argmax go through ``index_select``.
+  by a device-side argmax go through ``index_select``/``gather``.
 """
 
 from __future__ import annotations
@@ -77,12 +87,6 @@ def from_kernel_args(args: dict, device) -> dict:
             a = a.astype(np.float32)
         out[k] = torch.from_numpy(a).to(device)
     return out
-
-
-def _at(x: torch.Tensor, i1: torch.Tensor) -> torch.Tensor:
-    """Row ``i1[0]`` of ``x`` for a one-element device index, without a
-    host read."""
-    return x.index_select(0, i1)[0]
 
 
 def feasibility(
@@ -156,32 +160,45 @@ def _combine_masks(a_mask, a_has, b_mask, b_has):
 
 
 def _level_fill(q, npods, n, level_bits: int = _LEVEL_SEARCH_ITERS):
-    """Distribute n pods across bins filling emptiest-first up to per-bin
-    caps q (the reference's ascending-pod-count claim ordering). Returns
-    per-bin take. The binary search over the water level runs
-    ``level_bits`` unrolled steps of device dataflow — no host reads."""
-    total_cap = q.sum(dtype=_I32)
+    """Distribute n[i] pods of each row i across its bins filling
+    emptiest-first up to per-bin caps q (the reference's
+    ascending-pod-count claim ordering). q/npods ``[N,B]`` (npods may
+    broadcast), n ``[N]``; returns the per-bin take ``[N,B]``. The binary
+    search over the water level runs ``level_bits`` unrolled steps of
+    device dataflow — no host reads. A single row (q ``[B]``, n 0-d) is
+    the N = 1 case."""
+    if n.dim() == 0:
+        return _level_fill(q[None], npods[None], n[None], level_bits)[0]
+    total_cap = q.sum(-1, dtype=_I32)
     n_eff = torch.minimum(n, total_cap)
-    lo = torch.zeros((), dtype=_I32, device=q.device)
-    hi = torch.full((), 1 << level_bits, dtype=_I32, device=q.device)
+    lo = torch.zeros_like(n_eff)
+    hi = torch.full_like(n_eff, 1 << level_bits)
     for _ in range(level_bits):
         mid = (lo + hi) // 2
-        enough = torch.minimum(q, (mid - npods).clamp(min=0)).sum(dtype=_I32) >= n_eff
+        enough = torch.minimum(q, (mid[:, None] - npods).clamp(min=0)).sum(
+            -1, dtype=_I32) >= n_eff
         lo = torch.where(enough, lo, mid)
         hi = torch.where(enough, mid, hi)
-    level = hi
+    level = hi[:, None]
     take = torch.minimum(q, (level - npods).clamp(min=0))
     # overshoot: bins whose take reaches the final level can each give back 1
-    excess = take.sum(dtype=_I32) - n_eff
+    excess = take.sum(-1, dtype=_I32) - n_eff
     cand = (take > 0) & (npods + take == level)
-    give_back = cand & (torch.cumsum(cand.to(_I32), 0, dtype=_I32) <= excess)
+    give_back = cand & (torch.cumsum(cand.to(_I32), -1, dtype=_I32)
+                        <= excess[:, None])
     return take - give_back.to(_I32)
+
+
+def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx[i]]`` for every row i, for a device index ``[N]`` — an
+    argmax pick without a host read."""
+    return x.index_select(0, idx)
 
 
 def pack(
     # per-group rows, already in FFD order
     g_demand,  # [G,R] f32
-    g_count,  # [G] i32
+    g_count,  # [N,G] i32: the row axis
     g_mask,  # [G,K,W] i32
     g_has,  # [G,K] bool
     F,  # [G,T] feasibility
@@ -197,7 +214,7 @@ def pack(
     g_tier,  # [G] i32: priority tier (rows arrive tier-major)
     # existing/in-flight nodes as pre-loaded bins
     ge_ok,  # [G,E] bool
-    e_avail,  # [E,R] f32
+    e_avail,  # [N,E,R] f32: the row axis
     e_npods,  # [E] i32
     e_scnt,  # [E,C] i32
     e_decl,  # [E,CW] i32
@@ -219,15 +236,19 @@ def pack(
     max_minv: int = 0,
 ):
     """Grouped greedy pack — the JAX ``pack`` step for step (see its
-    docstring for the semantics of every class and gate). Returns dict with
-    assign [G,B] i32, assign_e [G,E] i32, used [B] bool, npods [B] i32,
-    types [B,T] bool, tmpl [B] i32, tier [B] i32."""
+    docstring for the semantics of every class and gate), for N rows at
+    once: row i packs ``g_count[i]`` onto ``e_avail[i]`` and bins of its
+    own, and no row reads another's state. Returns dict with assign
+    [N,G,B] i32, assign_e [N,G,E] i32, used [N,B] bool, npods [N,B] i32,
+    types [N,B,T] bool, tmpl [N,B] i32, tier [N,B] i32."""
     dev = g_demand.device
     G, R = g_demand.shape
+    N = g_count.shape[0]
     T = t_alloc.shape[0]
     M = m_overhead.shape[0]
     B = max_bins
-    E = e_avail.shape[0]
+    E = e_avail.shape[1]
+    K, W = g_mask.shape[1:]
     CW = g_decl.shape[1]
     C = g_sown.shape[1]
     A = g_aneed.shape[1]
@@ -239,39 +260,42 @@ def pack(
     # static per-type check: template overhead fits the type's allocatable
     # on EVERY dim (a group's d=0 dims never re-check it inside the loop)
     ovh_ok = (m_overhead[t_tmpl_l] <= t_alloc + _EPS).all(-1)  # [T]
+    # new-bin capacity shared by every row
+    fresh_avail = t_alloc - m_overhead[t_tmpl_l]  # [T,R]
 
     def zeros(shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=dev)
 
-    used = zeros(B, torch.bool)
-    npods = zeros(B, _I32)
-    load = zeros((B, R), _F32)
-    types = zeros((B, T), torch.bool)
-    bmask = zeros((B,) + tuple(g_mask.shape[1:]), _I32)
-    bhas = zeros((B,) + tuple(g_has.shape[1:]), torch.bool)
-    btmpl = zeros(B, _I32)
-    rem = m_limits.to(_F32).clone()
-    bdecl = zeros((B, CW), _I32)
-    bmatch = zeros((B, CW), _I32)
-    bscnt = zeros((B, C), _I32)
-    baff = zeros((B, A), _I32)
+    used = zeros((N, B), torch.bool)
+    npods = zeros((N, B), _I32)
+    load = zeros((N, B, R), _F32)
+    types = zeros((N, B, T), torch.bool)
+    bmask = zeros((N, B, K, W), _I32)
+    bhas = zeros((N, B, K), torch.bool)
+    btmpl = zeros((N, B), _I32)
+    rem = m_limits.to(_F32)[None].expand(N, M, R).clone()  # [N,M,R]
+    bdecl = zeros((N, B, CW), _I32)
+    bmatch = zeros((N, B, CW), _I32)
+    bscnt = zeros((N, B, C), _I32)
+    baff = zeros((N, B, A), _I32)
     # tier of the group that OPENED the bin (observability only)
-    btier = zeros(B, _I32)
+    btier = zeros((N, B), _I32)
     if with_existing:
-        eload = zeros((E, R), _F32)
-        enpods = e_npods.to(_I32)
-        escnt = e_scnt.to(_I32)
-        edecl = e_decl
-        ematch = e_match
-        eaff = e_aff.to(_I32)
-    assign = zeros((G, B), _I32)
-    assign_e = zeros((G, E), _I32)
-    no_tol_g = zeros((1,) + tuple(g_has.shape[1:]), torch.bool)
-    no_tol_b = zeros((B,) + tuple(g_has.shape[1:]), torch.bool)
+        # shared node state broadcasts over the rows until a take lands
+        eload = zeros((N, E, R), _F32)
+        enpods = e_npods.to(_I32)[None]
+        escnt = e_scnt.to(_I32)[None]
+        edecl = e_decl[None]
+        ematch = e_match[None]
+        eaff = e_aff.to(_I32)[None]
+    assign = zeros((N, G, B), _I32)
+    assign_e = zeros((N, G, E), _I32)
+    no_tol_g = zeros((1, K), torch.bool)
+    no_tol_b = zeros((N * B, K), torch.bool)
 
     for g in range(G):
         d = g_demand[g]
-        n = g_count[g]
+        n = g_count[:, g]  # [N]
         gm, gh = g_mask[g], g_has[g]
         Fg, tfull = F[g], tmpl_full[g]
         cap_g, single = g_bin_cap[g], g_single[g]
@@ -279,110 +303,108 @@ def pack(
         sown_g, smatch_g = g_sown[g], g_smatch[g]
         aneed_g, amatch_g = g_aneed[g], g_amatch[g]
         any_aneed = aneed_g.any()
-        has_pods = n > 0
+        has_pods = n > 0  # [N]
         owned = sown_g < SPREAD_OWNED_MIN  # [C]
         smatch_i = smatch_g.to(_I32)
         amatch_i = amatch_g.to(_I32)
 
         # ---- phase A: existing nodes first ----
         if with_existing:
-            avail_e = e_avail - eload  # [E,R]
-            ratio_e = torch.where(
-                d[None, :] > 0, avail_e / d[None, :].clamp(min=_EPS), inf
-            )
-            q_e = sat_int32(torch.floor(ratio_e.amin(-1) + _EPS))  # [E]
-            anti_e = ((ematch & decl_g[None, :]) == 0).all(-1) & (
-                (edecl & match_g[None, :]) == 0
+            avail_e = e_avail - eload  # [N,E,R]
+            ratio_e = torch.where(d > 0, avail_e / d.clamp(min=_EPS), inf)
+            q_e = sat_int32(torch.floor(ratio_e.amin(-1) + _EPS))  # [N,E]
+            anti_e = ((ematch & decl_g) == 0).all(-1) & (
+                (edecl & match_g) == 0
             ).all(-1)
-            rem_e = sown_g[None, :] - escnt  # [E,C]
+            rem_e = sown_g - escnt  # [N,E,C]
             rem_e_eff = torch.where(
-                smatch_g[None, :], rem_e, (rem_e > 0).to(_I32) * UNCAPPED
+                smatch_g, rem_e, (rem_e > 0).to(_I32) * UNCAPPED
             )
-            q_cls_e = torch.where(owned[None, :], rem_e_eff, UNCAPPED).amin(-1)
-            aff_e = (~aneed_g[None, :] | (eaff > 0)).all(-1)
+            q_cls_e = torch.where(owned, rem_e_eff, UNCAPPED).amin(-1)
+            aff_e = (~aneed_g | (eaff > 0)).all(-1)
             q_e = torch.where(ge_ok[g] & anti_e & aff_e, q_e, 0)
             q_e = torch.minimum(torch.minimum(q_e, cap_g), q_cls_e.clamp(min=0))
-            q_e = torch.where(single | ~has_pods, 0, q_e)
-            take_e = _level_fill(q_e, enpods, n, level_bits)
-            n = n - take_e.sum(dtype=_I32)
+            q_e = torch.where(single | ~has_pods[:, None], 0, q_e)
+            take_e = _level_fill(q_e, enpods, n, level_bits)  # [N,E]
+            n = n - take_e.sum(-1, dtype=_I32)
 
-            eload = eload + take_e[:, None].to(_F32) * d[None, :]
+            eload = eload + take_e[..., None].to(_F32) * d
             enpods = enpods + take_e
-            escnt = escnt + take_e[:, None] * smatch_i[None, :]
-            eaff = eaff + take_e[:, None] * amatch_i[None, :]
-            landed_e = (take_e > 0)[:, None]
-            edecl = torch.where(landed_e, edecl | decl_g[None, :], edecl)
-            ematch = torch.where(landed_e, ematch | match_g[None, :], ematch)
-            assign_e[g] = take_e
+            escnt = escnt + take_e[..., None] * smatch_i
+            eaff = eaff + take_e[..., None] * amatch_i
+            landed_e = (take_e > 0)[..., None]
+            edecl = torch.where(landed_e, edecl | decl_g, edecl)
+            ematch = torch.where(landed_e, ematch | match_g, ematch)
+            assign_e[:, g] = take_e
 
         # ---- phase B: open claim bins: compatibility ----
-        # the group row against every bin row, no tolerance: the compat
-        # kernel at [1,B]
-        compat_b = compat(gm[None], gh[None], no_tol_g, bmask, bhas, no_tol_b)[0]
+        # the group row against every row's bins, no tolerance: the compat
+        # kernel at [1, N·B]
+        compat_b = compat(gm[None], gh[None], no_tol_g,
+                          bmask.view(N * B, K, W), bhas.view(N * B, K),
+                          no_tol_b).view(N, B)
         compat_b = compat_b & used & tfull[btmpl.long()]
-        anti_ok = ((bmatch & decl_g[None, :]) == 0).all(-1) & (
-            (bdecl & match_g[None, :]) == 0
+        anti_ok = ((bmatch & decl_g) == 0).all(-1) & (
+            (bdecl & match_g) == 0
         ).all(-1)
         compat_b = compat_b & anti_ok
-        aff_ok = (~aneed_g[None, :] | (baff > 0)).all(-1)
+        aff_ok = (~aneed_g | (baff > 0)).all(-1)
         compat_b = compat_b & aff_ok
 
         # ---- per-bin capacity for this group (max over remaining types) ----
         # the reciprocal, then multiplies — the JAX formula, kept for its
         # float order
         inv_d = torch.where(d > 0, torch.ones_like(d) / d.clamp(min=_EPS), 0.0)
-        ad = torch.where(d[None, :] > 0, t_alloc * inv_d[None, :], inf)  # [T,R]
-        ld = load * inv_d[None, :]  # [B,R]
+        ad = torch.where(d > 0, t_alloc * inv_d, inf)  # [T,R]
+        ld = load * inv_d  # [N,B,R]
         cap_bt = sat_int32(
-            torch.floor((ad[None, :, :] - ld[:, None, :]).amin(-1) + _EPS)
-        )  # [B,T]
-        cap_bt = torch.where(types & Fg[None, :], cap_bt.clamp(min=0), 0)
-        q = cap_bt.amax(-1)  # [B]
+            torch.floor((ad[None, None] - ld[:, :, None]).amin(-1) + _EPS)
+        )  # [N,B,T]
+        cap_bt = torch.where(types & Fg, cap_bt.clamp(min=0), 0)
+        q = cap_bt.amax(-1)  # [N,B]
         q = torch.where(compat_b, q, 0)
         q = torch.minimum(q, cap_g)
-        rem_cls = sown_g[None, :] - bscnt  # [B,C]
+        rem_cls = sown_g - bscnt  # [N,B,C]
         rem_eff = torch.where(
-            smatch_g[None, :], rem_cls, (rem_cls > 0).to(_I32) * UNCAPPED
+            smatch_g, rem_cls, (rem_cls > 0).to(_I32) * UNCAPPED
         )
-        q_cls = torch.where(owned[None, :], rem_eff, UNCAPPED).amin(-1)  # [B]
+        q_cls = torch.where(owned, rem_eff, UNCAPPED).amin(-1)  # [N,B]
         q = torch.minimum(q, q_cls.clamp(min=0))
         if max_minv > 0:
             # minValues floor: a take of t keeps >= minv instance types
             # alive iff t <= the minv-th largest per-type capacity
-            minv_b = m_minv[btmpl.long()]  # [B]
+            minv_b = m_minv[btmpl.long()]  # [N,B]
             k_eff = min(max_minv, T)
-            top = torch.topk(cap_bt, k_eff, dim=1).values  # [B,k_eff] desc
+            top = torch.topk(cap_bt, k_eff, dim=-1).values  # [N,B,k_eff] desc
             idx = (minv_b - 1).clamp(0, k_eff - 1)
-            kth = torch.gather(top, 1, idx[:, None].long())[:, 0]
+            kth = torch.gather(top, -1, idx[..., None].long())[..., 0]
             kth = torch.where(minv_b > T, 0, kth)
             q = torch.where(minv_b > 0, torch.minimum(q, kth.clamp(min=0)), q)
 
         take = _level_fill(q, npods, n, level_bits)
         # single-bin group: everything lands on the single highest-capacity
         # bin (first maximum, as jnp.argmax)
-        b_star = torch.argmax(q)
-        take_single = torch.where(ar_B == b_star, torch.minimum(q.amax(), n), 0)
+        b_star = torch.argmax(q, dim=-1)  # [N]
+        take_single = torch.where(
+            ar_B == b_star[:, None], torch.minimum(q.amax(-1), n)[:, None], 0)
         take = torch.where(single, take_single, take)
-        take = torch.where(has_pods, take, 0)
-        assigned = take.sum(dtype=_I32)
+        take = torch.where(has_pods[:, None], take, 0)
+        assigned = take.sum(-1, dtype=_I32)  # [N]
         spill = n - assigned
 
         # ---- new bins from the best template ----
-        fresh_avail = t_alloc - m_overhead[t_tmpl_l]  # [T,R]
-        fr = torch.where(
-            d[None, :] > 0, fresh_avail / d[None, :].clamp(min=_EPS), inf
-        )
+        fr = torch.where(d > 0, fresh_avail / d.clamp(min=_EPS), inf)
         fresh_cap = sat_int32(torch.floor(fr.amin(-1) + _EPS))  # [T]
-        limit_ok = (t_cap <= rem[t_tmpl_l] + _EPS).all(-1)  # [T]
+        limit_ok = (t_cap <= rem[:, t_tmpl_l] + _EPS).all(-1)  # [N,T]
         new_ok = Fg & limit_ok & tfull[t_tmpl_l] & (fresh_cap > 0) & ovh_ok
-        fc = torch.where(new_ok[:, None] & t_is_m, fresh_cap[:, None], 0)  # [T,M]
-        per_node_m = fc.amax(0)  # [M]
+        fc = torch.where(new_ok[..., None] & t_is_m, fresh_cap[:, None], 0)  # [N,T,M]
+        per_node_m = fc.amax(1)  # [N,M]
         if max_minv > 0:
             # a fresh claim must also open with >= minv viable types
             k_eff = min(max_minv, T)
-            topm = torch.topk(fc.T, k_eff, dim=1).values  # [M,k_eff]
-            idx_m = (m_minv - 1).clamp(0, k_eff - 1)
-            kth_m = torch.gather(topm, 1, idx_m[:, None].long())[:, 0]
+            topm = torch.topk(fc.transpose(1, 2), k_eff, dim=-1).values  # [N,M,k]
+            idx_m = (m_minv - 1).clamp(0, k_eff - 1).long()
+            kth_m = torch.gather(topm, -1, idx_m[None, :, None].expand(N, M, 1))[..., 0]
             kth_m = torch.where(m_minv > T, 0, kth_m)
             per_node_m = torch.where(
                 m_minv > 0, torch.minimum(per_node_m, kth_m.clamp(min=0)),
@@ -390,20 +412,23 @@ def pack(
             )
         feasible_m = per_node_m > 0
         # templates are pre-sorted by weight: first feasible wins
-        m_star = torch.argmax(feasible_m.to(_I32), dim=0, keepdim=True)  # [1]
-        any_m = feasible_m.any()
+        m_star = torch.argmax(feasible_m.to(_I32), dim=-1)  # [N]
+        any_m = feasible_m.any(-1)
         cap_own = torch.where(owned & smatch_g, sown_g, UNCAPPED).amin()
         per_node = torch.minimum(
-            _at(per_node_m, m_star), torch.minimum(cap_g, cap_own)
-        ).clamp(min=1)
+            torch.gather(per_node_m, 1, m_star[:, None])[:, 0],
+            torch.minimum(cap_g, cap_own),
+        ).clamp(min=1)  # [N]
 
         # worst-case capacity of a new bin (for limit accounting, below)
-        is_star = t_tmpl_l == m_star
-        worst = torch.where((new_ok & is_star)[:, None], t_cap, 0.0).amax(0)  # [R]
+        is_star = t_tmpl_l == m_star[:, None]  # [N,T]
+        worst = torch.where((new_ok & is_star)[..., None], t_cap, 0.0).amax(1)  # [N,R]
         # cap bin openings by the nodepool's remaining limits
-        limit_ratio = torch.where(worst > 0, _at(rem, m_star) / worst, inf)
+        star_idx = m_star[:, None, None].expand(N, 1, R)
+        rem_star = torch.gather(rem, 1, star_idx)[:, 0]  # [N,R]
+        limit_ratio = torch.where(worst > 0, rem_star / worst, inf)
         max_new_by_limit = sat_int32(
-            torch.floor(limit_ratio.amin() + _EPS).clamp(0, 2**30)
+            torch.floor(limit_ratio.amin(-1) + _EPS).clamp(0, 2**30)
         )
 
         want_new = torch.where(
@@ -416,64 +441,67 @@ def pack(
         )
         # affinity owners may open exactly ONE fresh bin, and only to
         # bootstrap a class with zero matches anywhere
-        gc = baff.sum(0, dtype=_I32)  # [A]
+        gc = baff.sum(1, dtype=_I32)  # [N,A]
         if with_existing:
-            gc = gc + eaff.sum(0, dtype=_I32)
-        boot_ok = (~aneed_g | (amatch_g & (gc == 0))).all()
+            gc = gc + eaff.sum(1, dtype=_I32)
+        boot_ok = (~aneed_g | (amatch_g & (gc == 0))).all(-1)  # [N]
         want_new = torch.where(any_aneed & ~boot_ok, 0, want_new)
         want_new = torch.where(any_aneed, want_new.clamp(max=1), want_new)
         want_new = torch.minimum(want_new, max_new_by_limit)
         free = ~used
-        rank = torch.cumsum(free.to(_I32), 0, dtype=_I32) - 1
-        sel = free & (rank < want_new)
+        rank = torch.cumsum(free.to(_I32), -1, dtype=_I32) - 1  # [N,B]
+        sel = free & (rank < want_new[:, None])
         pods_new = torch.minimum(
-            (spill - rank * per_node).clamp(min=0), per_node
+            (spill[:, None] - rank * per_node[:, None]).clamp(min=0),
+            per_node[:, None],
         ) * sel.to(_I32)
 
         # ---- commit: existing bins ----
         upd = take > 0
         npods2 = npods + take
-        load2 = load + take[:, None].to(_F32) * d[None, :]
+        load2 = load + take[..., None].to(_F32) * d
         # a surviving type still fits iff its capacity covered the take
-        fits_new = cap_bt >= take[:, None]  # [B,T]
-        types2 = torch.where(upd[:, None], types & Fg[None, :] & fits_new, types)
-        cm, ch = _combine_masks(bmask, bhas, gm[None, :, :], gh[None, :])
-        bmask2 = torch.where(upd[:, None, None], cm, bmask)
-        bhas2 = torch.where(upd[:, None], ch, bhas)
+        fits_new = cap_bt >= take[..., None]  # [N,B,T]
+        types2 = torch.where(upd[..., None], types & Fg & fits_new, types)
+        cm, ch = _combine_masks(bmask, bhas, gm, gh)
+        bmask2 = torch.where(upd[..., None, None], cm, bmask)
+        bhas2 = torch.where(upd[..., None], ch, bhas)
 
         # ---- commit: new bins ----
-        new_load = (_at(m_overhead, m_star)[None, :]
-                    + pods_new[:, None].to(_F32) * d[None, :])
+        new_load = (_rows(m_overhead, m_star)[:, None, :]
+                    + pods_new[..., None].to(_F32) * d)
         new_types = (
-            is_star[None, :]
-            & new_ok[None, :]
-            & (fresh_cap[None, :] >= pods_new[:, None])
+            is_star[:, None, :]
+            & new_ok[:, None, :]
+            & (fresh_cap >= pods_new[..., None])
         )
         # new bin requirements = template ∧ group
-        nm, nh = _combine_masks(_at(m_mask, m_star), _at(m_has, m_star), gm, gh)
+        nm, nh = _combine_masks(_rows(m_mask, m_star), _rows(m_has, m_star),
+                                gm, gh)  # [N,K,W], [N,K]
         used = used | sel
         npods = torch.where(sel, pods_new, npods2)
-        load = torch.where(sel[:, None], new_load, load2)
-        types = torch.where(sel[:, None], new_types, types2)
-        bmask = torch.where(sel[:, None, None], nm[None, :, :], bmask2)
-        bhas = torch.where(sel[:, None], nh[None, :], bhas2)
-        btmpl = torch.where(sel, m_star.to(_I32), btmpl)
+        load = torch.where(sel[..., None], new_load, load2)
+        types = torch.where(sel[..., None], new_types, types2)
+        bmask = torch.where(sel[..., None, None], nm[:, None], bmask2)
+        bhas = torch.where(sel[..., None], nh[:, None], bhas2)
+        btmpl = torch.where(sel, m_star[:, None].to(_I32), btmpl)
         btier = torch.where(sel, g_tier[g], btier)
 
         # ---- nodepool limits: subtract worst-case capacity per new bin ----
-        n_opened = sel.to(_F32).sum()
-        rem = rem.index_add(0, m_star, (-worst * n_opened)[None, :])
+        n_opened = sel.to(_F32).sum(-1)  # [N]
+        rem = rem.scatter_add(1, star_idx,
+                              (-worst * n_opened[:, None])[:, None, :])
 
         # ---- conflict-class commit ----
-        landed = (upd | (sel & (pods_new > 0)))[:, None]
-        bdecl = torch.where(landed, bdecl | decl_g[None, :], bdecl)
-        bmatch = torch.where(landed, bmatch | match_g[None, :], bmatch)
+        landed = (upd | (sel & (pods_new > 0)))[..., None]
+        bdecl = torch.where(landed, bdecl | decl_g, bdecl)
+        bmatch = torch.where(landed, bmatch | match_g, bmatch)
         # spread/affinity class counts grow by the bin's total take for
         # every class whose selector matches this group
-        total_take = take + pods_new  # [B]
-        bscnt = bscnt + total_take[:, None] * smatch_i[None, :]
-        baff = baff + total_take[:, None] * amatch_i[None, :]
-        assign[g] = total_take
+        total_take = take + pods_new  # [N,B]
+        bscnt = bscnt + total_take[..., None] * smatch_i
+        baff = baff + total_take[..., None] * amatch_i
+        assign[:, g] = total_take
 
     return dict(
         assign=assign,
@@ -486,20 +514,13 @@ def pack(
     )
 
 
-def solve_step(args: dict, max_bins: int, with_existing: bool | None = None,
-               level_bits: int = _LEVEL_SEARCH_ITERS,
-               max_minv: int | None = None) -> dict:
-    """The full single-call solve over one snapshot's tensor dict (see
-    ``from_kernel_args``): defaults for absent tensor families, then
-    feasibility + pack on the tensors' device. Returns the pack dict plus
-    ``F`` and ``price``."""
-    if max_minv is None:
-        # host read of an input, before any device work is queued
-        mv = args.get("m_minv")
-        max_minv = int(mv.max()) if mv is not None and mv.numel() else 0
+def _with_defaults(args: dict) -> dict:
+    """``args`` with the absent tensor families filled in: no topology
+    classes, no tiers, no minValues, and — when no existing-node tensors
+    were given — one inert node (zero capacity) that phase A leaves out."""
     args = dict(args)
     dev = args["g_demand"].device
-    G = args["g_count"].shape[0]
+    G, R = args["g_demand"].shape
 
     def full(shape, value, dtype):
         return torch.full(shape, value, dtype=dtype, device=dev)
@@ -525,15 +546,11 @@ def solve_step(args: dict, max_bins: int, with_existing: bool | None = None,
         args["g_amatch"] = full((G, args["g_aneed"].shape[1]), False, torch.bool)
     if "g_tier" not in args:
         args["g_tier"] = full((G,), 0, _I32)
-    # existing-node tensors default to one inert node (zero capacity); when
-    # the caller supplied none, phase A is left out entirely
     C = args["g_sown"].shape[1]
     CW = args["g_decl"].shape[1]
-    if with_existing is None:
-        with_existing = "e_avail" in args
     if "e_avail" not in args:
-        args["e_avail"] = full((1, args["g_demand"].shape[1]), 0.0, _F32)
-    E = args["e_avail"].shape[0]
+        args["e_avail"] = full((1, R), 0.0, _F32)
+    E = args["e_avail"].shape[-2]
     if "ge_ok" not in args:
         args["ge_ok"] = full((G, E), False, torch.bool)
     if "e_npods" not in args:
@@ -548,7 +565,11 @@ def solve_step(args: dict, max_bins: int, with_existing: bool | None = None,
         args["e_aff"] = full((E, args["g_aneed"].shape[1]), 0, _I32)
     if "m_minv" not in args:
         args["m_minv"] = full((args["m_overhead"].shape[0],), 0, _I32)
-    F, price, tmpl_full = feasibility(
+    return args
+
+
+def _feasibility(args):
+    return feasibility(
         args["g_mask"], args["g_has"], args["g_demand"],
         args["t_mask"], args["t_has"], args["t_alloc"],
         args["g_zone_allowed"], args["g_ct_allowed"],
@@ -557,18 +578,61 @@ def solve_step(args: dict, max_bins: int, with_existing: bool | None = None,
         g_tol=args.get("g_tol"), t_tol=args.get("t_tol"),
         m_tol=args.get("m_tol"),
     )
-    out = pack(
-        args["g_demand"], args["g_count"], args["g_mask"], args["g_has"], F,
+
+
+def _pack(args, F, tmpl_full, g_count, e_avail, **kw):
+    return pack(
+        args["g_demand"], g_count, args["g_mask"], args["g_has"], F,
         tmpl_full, args["g_bin_cap"], args["g_single"], args["g_decl"],
         args["g_match"], args["g_sown"], args["g_smatch"], args["g_aneed"],
         args["g_amatch"], args["g_tier"],
-        args["ge_ok"], args["e_avail"], args["e_npods"], args["e_scnt"],
+        args["ge_ok"], e_avail, args["e_npods"], args["e_scnt"],
         args["e_decl"], args["e_match"], args["e_aff"],
         args["t_alloc"], args["t_cap"], args["t_tmpl"], args["m_mask"],
         args["m_has"], args["m_overhead"], args["m_limits"], args["m_minv"],
-        max_bins=max_bins, with_existing=with_existing,
-        level_bits=level_bits, max_minv=max_minv,
+        **kw,
     )
+
+
+def solve_step(args: dict, max_bins: int, with_existing: bool | None = None,
+               level_bits: int = _LEVEL_SEARCH_ITERS,
+               max_minv: int | None = None) -> dict:
+    """The full single-call solve over one snapshot's tensor dict (see
+    ``from_kernel_args``): defaults for absent tensor families, then
+    feasibility + pack (one row) on the tensors' device. Returns the pack
+    dict plus ``F`` and ``price``."""
+    if max_minv is None:
+        # host read of an input, before any device work is queued
+        mv = args.get("m_minv")
+        max_minv = int(mv.max()) if mv is not None and mv.numel() else 0
+    if with_existing is None:
+        with_existing = "e_avail" in args
+    args = _with_defaults(args)
+    F, price, tmpl_full = _feasibility(args)
+    out = _pack(args, F, tmpl_full, args["g_count"][None],
+                args["e_avail"][None], max_bins=max_bins,
+                with_existing=with_existing, level_bits=level_bits,
+                max_minv=max_minv)
+    out = {k: v[0] for k, v in out.items()}
     out["F"] = F
     out["price"] = price
     return out
+
+
+def probe_step(varying: dict, shared: dict, max_bins: int, max_minv: int,
+               level_bits: int = _LEVEL_SEARCH_ITERS):
+    """The consolidation probe over a chunk of counterfactual rows: the
+    JAX package's vmapped ``solve_step`` (``_batched_kernel``'s ``probe``)
+    with ``varying = {g_count [Np,Gp], e_avail [Np,Ep,R]}`` on the row
+    axis and every other tensor in ``shared``. Feasibility runs once, the
+    pack once for all rows. Returns ``(placed_g [Np,Gp], used [Np])``:
+    per-row per-group placed pods (new bins and existing nodes) and
+    per-row opened bins, as int32 tensors on the device."""
+    args = _with_defaults({**shared, "e_avail": varying["e_avail"]})
+    F, _, tmpl_full = _feasibility(args)
+    out = _pack(args, F, tmpl_full, varying["g_count"], varying["e_avail"],
+                max_bins=max_bins, with_existing=True, level_bits=level_bits,
+                max_minv=max_minv)
+    placed_g = out["assign"].sum(2, dtype=_I32) + out["assign_e"].sum(
+        2, dtype=_I32)
+    return placed_g, out["used"].sum(-1, dtype=_I32)

@@ -1,4 +1,4 @@
-"""The port's two workloads, built from its own objects.
+"""The port's workloads, built from its own objects.
 
 - **headline** (``build_workload``, the copy of ``bench.py``'s): ``n_pods``
   pending pods in 24 deployment shapes (six cpu/memory sizes × four
@@ -214,3 +214,118 @@ def live_round(claims, templates, instance_types, n_pods=5_000, seed=42):
     topology = Topology(domains=domains, pods=burst)
     existing = [ExistingNode(sn, topology) for sn in live_cluster(claims)]
     return burst, topology, existing
+
+
+FLEET_POD_CPU, FLEET_POD_MEM_GIB = 5.0, 10.0
+
+
+def fleet_layout(n_nodes: int, n_groups: int | None = None) -> list:
+    """The pods of the underutilized fleet, node by node: a list with one
+    entry per node, each the ``(deployment, pod name)`` of its pods.
+
+    The layout follows from two rules of the JAX package's environment:
+    the provisioner packs a deployment's replicas three to a 16-cpu node
+    in creation order (the claims open in that order), and a scale-down
+    keeps the first-created replicas (``kube/workload.py``). So with
+    ``n_groups`` None (``config4_consolidation_env``: ``n_nodes``
+    deployments of 3 replicas, scaled to 1) node i keeps one pod of
+    deployment i; with ``n_groups`` (``config4_xl_env``: each deployment
+    ``3·per_group`` replicas on ``per_group = n_nodes // n_groups`` nodes,
+    scaled to ``per_group``) the deployment's first nodes keep three pods
+    each and its other nodes are empty."""
+    if n_groups is None:
+        return [[(f"d{i}", f"d{i}-0")] for i in range(n_nodes)]
+    per_group = max(n_nodes // n_groups, 1)
+    nodes = []
+    for j in range(n_groups):
+        for k in range(per_group):
+            nodes.append([(f"d{j}", f"d{j}-{r}")
+                          for r in range(3 * k, min(3 * k + 3, per_group))])
+    return nodes
+
+
+def underutilized_fleet(n_nodes: int, n_groups: int | None = None,
+                        device=None):
+    """``(store, cluster, provisioner, candidates)`` for the underutilized
+    fleet of ``fleet_layout(n_nodes, n_groups)``: a port
+    ``KubeStore`` holding the nodepool, one launched, registered and
+    initialized NodeClaim and its Node per node (the instance type and
+    offering ``KwokCloudProvider.create`` picks), and the bound pods; a
+    ``Cluster`` fed the store's events; a ``Provisioner`` whose solver is
+    ``TorchSolver(device)`` (None means CUDA); and the disruption
+    candidates in ``disruption_cost`` order, stable (the disruption
+    methods' order)."""
+    from karpenter_tpu_torch.api import labels as wk
+    from karpenter_tpu_torch.api.nodeclaim import (
+        COND_INITIALIZED,
+        COND_LAUNCHED,
+        COND_REGISTERED,
+        NodeClaim,
+        NodeClaimSpec,
+    )
+    from karpenter_tpu_torch.api.nodepool import NodePool
+    from karpenter_tpu_torch.api.objects import (
+        NodeSelectorRequirement,
+        ObjectMeta,
+        Pod,
+    )
+    from karpenter_tpu_torch.cloudprovider.catalog import make_instance_type
+    from karpenter_tpu_torch.cloudprovider.kwok import KwokCloudProvider
+    from karpenter_tpu_torch.controllers.disruption.helpers import get_candidates
+    from karpenter_tpu_torch.controllers.provisioning.provisioner import (
+        Provisioner,
+    )
+    from karpenter_tpu_torch.kube.store import KubeStore
+    from karpenter_tpu_torch.models.solver import TorchSolver
+    from karpenter_tpu_torch.state.cluster import Cluster
+    from karpenter_tpu_torch.utils.clock import FakeClock
+
+    solver = TorchSolver(device)
+    clock = FakeClock()
+    store = KubeStore(clock=clock)
+    cloud = KwokCloudProvider(store, [make_instance_type("xl", 16, 64)])
+    pool = NodePool(metadata=ObjectMeta(name="default"))
+    pool.spec.disruption.consolidate_after = 0.0
+    pool.spec.disruption.budgets[0].nodes = "100%"
+    store.create("nodepools", pool)
+    # the claims were sized for the three replicas each node held
+    requests = {"cpu": 3 * FLEET_POD_CPU,
+                "memory": 3 * FLEET_POD_MEM_GIB * GIB, "pods": 3.0}
+    for i, pods in enumerate(fleet_layout(n_nodes, n_groups)):
+        name = f"default-{i:05d}"
+        claim = cloud.create(NodeClaim(
+            metadata=ObjectMeta(name=name, namespace="",
+                                labels={wk.NODEPOOL_LABEL: "default"}),
+            spec=NodeClaimSpec(
+                requirements=[NodeSelectorRequirement(
+                    key=wk.NODEPOOL_LABEL, operator="In",
+                    values=["default"])],
+                resource_requests=dict(requests))))
+        for cond in (COND_LAUNCHED, COND_REGISTERED, COND_INITIALIZED):
+            claim.set_condition(cond)
+        store.create("nodeclaims", claim)
+        # registration and initialization, as the lifecycle controller
+        # leaves a node: startup taints gone, the two labels set
+        node = store.get("nodes", name)
+        node.taints = []
+        node.metadata.labels[wk.NODE_REGISTERED_LABEL] = "true"
+        node.metadata.labels[wk.NODE_INITIALIZED_LABEL] = "true"
+        store.update("nodes", node)
+        for deployment, pod_name in pods:
+            store.create("pods", Pod(
+                metadata=ObjectMeta(
+                    name=pod_name, namespace="default",
+                    owner_references=[{"kind": "Deployment",
+                                       "name": deployment,
+                                       "controller": True}]),
+                requests={"cpu": FLEET_POD_CPU,
+                          "memory": FLEET_POD_MEM_GIB * GIB},
+                node_name=name, phase="Running"))
+    cluster = Cluster(store, clock=clock)
+    for event in store.drain_events():
+        cluster.on_event(event)
+    provisioner = Provisioner(store, cloud, solver=solver, clock=clock,
+                              cluster=cluster)
+    candidates = sorted(get_candidates(cluster, store, cloud, clock),
+                        key=lambda c: c.disruption_cost)
+    return store, cluster, provisioner, candidates

@@ -1,7 +1,8 @@
 """The port stands alone: no JAX, nothing of the JAX package.
 
-- A solve through the port in a fresh interpreter loads no ``jax`` module
-  and no ``karpenter_tpu`` module.
+- A solve and a joint consolidation round (``joint_retirement_plan`` on
+  a small underutilized fleet) through the port in a fresh interpreter
+  load no ``jax`` module and no ``karpenter_tpu`` module.
 - No file of ``karpenter_tpu_torch/`` imports either (AST scan, so lazy
   imports inside functions count too).
 - ``TorchSolver()`` with no device raises when CUDA is absent instead of
@@ -31,9 +32,14 @@ from karpenter_tpu_torch.models import TorchSolver
 from karpenter_tpu_torch.workload import build_workload
 pods, templates, its = build_workload(300, 60)
 res = TorchSolver(device="cpu").solve(pods, templates, its)
+from karpenter_tpu_torch.ops.consolidate import joint_retirement_plan
+from karpenter_tpu_torch.workload import underutilized_fleet
+store, cluster, prov, cands = underutilized_fleet(12, device="cpu")
+plan = joint_retirement_plan(prov, cluster, store, cands, want_singles=True)
 print(json.dumps({"new": sorted(loaded() - before),
                   "claims": res.node_count(),
-                  "errors": len(res.pod_errors)}))
+                  "errors": len(res.pod_errors),
+                  "retired": len(plan.selected_idx)}))
 """
 
 
@@ -49,6 +55,7 @@ def test_port_solve_loads_no_jax():
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got["new"] == []
     assert got["claims"] > 0 and got["errors"] == 0
+    assert got["retired"] >= 2
 
 
 def test_no_file_imports_jax_or_the_jax_package():
