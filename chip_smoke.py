@@ -62,10 +62,30 @@ It imports nothing of JAX or of ``karpenter_tpu``.
    over its allocatable, every displaced pod placed, no pod on a
    retiree). A chunk of the ladder and the relax LP are traced, and the
    probe's own G×T and 1×(Np·Bp) products join the compat cases.
+8. The operator loop, the fourth main path: ``workload.consolidation_env
+   (2000)`` — 2,000 deployments of three 5-cpu/10-GiB replicas on one
+   ``xl`` type, provisioned and bound through the port's ``Environment``
+   with ``TorchSolver()``, then scaled to one replica — converged as
+   ``perf/run.py``'s ``_converge_disruption`` does (``clock.step(20)``,
+   ``run_until_idle``, until the node count holds for three rounds), with
+   ``KARPENTER_RELAX=1`` (the card's default). Provisioning and every
+   round are timed by stage (snapshot build/advance, probe dispatch,
+   relax, confirming simulations, validation, live solves, drain,
+   rebind, orchestration), every command is recorded, and the launch
+   counts are zeroed before provisioning and before the convergence and
+   read after each (compat must launch 2 + Gp times per solve and per
+   probe chunk). The fleet must reach 667 nodes with all 2,000 pods
+   bound, no node over its allocatable, at most one probe dispatch per
+   cluster-state generation and no probe failure; the same build and
+   convergence on the CPU plain path must ship the same commands and end
+   the same; the run's last solve and probe dispatches are re-run on the
+   CPU (bit-equal) and traced, and the last solve's products join the
+   compat cases.
 
 Prints one ``{"kernels": [...]}`` line, one ``{"solve": ...}`` line, one
-``{"live_round": ...}`` line, one ``{"consolidation": ...}`` line, the
-card line, and as its last line ``{"ok": true, "device": {...}}``. Any
+``{"live_round": ...}`` line, one ``{"consolidation": ...}`` line, one
+``{"operator": ...}`` line, the card line, and as its last line
+``{"ok": true, "device": {...}}``. Any
 failure raises and exits non-zero; so does a machine without CUDA.
 """
 
@@ -95,6 +115,10 @@ GLOBAL_NODES = 2_000
 XL_NODES, XL_GROUPS = 10_000, 128
 MULTI_NODE_CANDIDATE_CAP = 100
 GLOBAL_CANDIDATE_CAP = 4096
+# the operator loop's fleet: perf/configs.py's config4_consolidation_env
+# (2000), which the JAX package's perf/run.py _converge_disruption brings
+# to 667 nodes (three 5-cpu pods to each 16-cpu node)
+OPERATOR_NODES, OPERATOR_END_NODES = 2_000, 667
 STEP_OUTPUTS = ("assign", "assign_e", "used", "tmpl", "F", "price", "npods")
 
 # compat cases beside the main path's own inputs, (G, T, K, W): a cluster
@@ -783,6 +807,423 @@ def consolidation_phase(cuda_kernels, kernels) -> tuple:
     return line, cases, total_launches
 
 
+def _owner(pod) -> str:
+    refs = pod.metadata.owner_references
+    return refs[0]["name"] if refs else pod.metadata.name
+
+
+def _fleet_state(env) -> tuple:
+    """The fleet as (instance type, pool, capacity type, zone, its pods by
+    owner) per live node, sorted, and the unbound pods by owner."""
+    from karpenter_tpu_torch.api import labels as wk
+
+    pods_on: dict = {}
+    unbound = []
+    for p in env.store.list("pods"):
+        if p.metadata.deletion_timestamp is not None:
+            continue
+        if p.node_name:
+            pods_on.setdefault(p.node_name, []).append(_owner(p))
+        else:
+            unbound.append(_owner(p))
+    nodes = sorted(
+        (n.labels.get(wk.INSTANCE_TYPE_LABEL, ""),
+         n.labels.get(wk.NODEPOOL_LABEL, ""),
+         n.labels.get(wk.CAPACITY_TYPE_LABEL, ""),
+         n.labels.get(wk.TOPOLOGY_ZONE_LABEL, ""),
+         tuple(sorted(pods_on.get(n.name, ()))))
+        for n in env.store.list("nodes")
+        if n.metadata.deletion_timestamp is None)
+    return nodes, sorted(unbound)
+
+
+def operator_loop(device, kernels, cuda_kernels) -> dict:
+    """``workload.consolidation_env(OPERATOR_NODES)`` built through the
+    port's ``Environment`` with ``TorchSolver(device)`` (None: the card),
+    then converged as ``perf/run.py``'s ``_converge_disruption`` does.
+    Returns the record: provisioning and per-round stage times, launch
+    counts, every command, the end state, and the last solve and probe
+    dispatch of the run (their inputs, for the checks)."""
+    import torch
+
+    from karpenter_tpu_torch.controllers.disruption import controller as dctl
+    from karpenter_tpu_torch.controllers.disruption import methods
+    from karpenter_tpu_torch.controllers.disruption import queue as oq
+    from karpenter_tpu_torch.controllers.node import termination
+    from karpenter_tpu_torch.controllers.provisioning.provisioner import (
+        Provisioner,
+    )
+    from karpenter_tpu_torch.kube import binder
+    from karpenter_tpu_torch.models import TorchSolver
+    from karpenter_tpu_torch.operator import metrics as m
+    from karpenter_tpu_torch.ops import consolidate as cons
+    from karpenter_tpu_torch.utils import resources as resutil
+    from karpenter_tpu_torch.workload import consolidation_env
+
+    on_card = device is None
+    acc = dict(solves=0, solve_ms=0.0, gp_sum=0, live_batches=0,
+               live_ms=0.0, probe_dispatches=0, probe_rows=0,
+               probe_chunks=0, probe_gp_sum=0, dispatch_ms=0.0,
+               build=0, build_ms=0.0, advance=0, advance_ms=0.0,
+               confirms=0, confirm_ms=0.0, validations=0, validate_ms=0.0)
+    last: dict = {}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def timed(key_n, key_ms, fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        sync()
+        acc[key_n] += 1
+        acc[key_ms] += (time.perf_counter() - t0) * 1e3
+        return out
+
+    real = dict(
+        step=kernels.solve_step, dispatch=cons.dispatch_counterfactual_rows,
+        build=cons.build_disruption_snapshot,
+        advance=cons.DisruptionSnapshot.advance,
+        confirm=methods.compute_consolidation,
+        validate=dctl.simulate_scheduling, schedule=Provisioner.schedule)
+
+    def step(args, **kw):
+        last["solve"] = (args, kw)
+        acc["gp_sum"] += int(args["g_demand"].shape[0])
+        return timed("solves", "solve_ms", real["step"], args, **kw)
+
+    def dispatch(shared, Gp, Ep, e_avail, max_minv, g_count_k, e_zero_cols,
+                 e_free=None, max_bins=1):
+        out = timed("probe_dispatches", "dispatch_ms", real["dispatch"],
+                    shared, Gp, Ep, e_avail, max_minv, g_count_k,
+                    e_zero_cols, e_free=e_free, max_bins=max_bins)
+        rows = g_count_k.shape[0]
+        chunks = -(-rows // cons.PROBE_CHUNK_ROWS)
+        acc["probe_rows"] += rows
+        acc["probe_chunks"] += chunks
+        acc["probe_gp_sum"] += chunks * Gp
+        last["probe"] = dict(args=(shared, Gp, Ep, e_avail, max_minv,
+                                   g_count_k, e_zero_cols),
+                             max_bins=max_bins, out=out)
+        return out
+
+    def schedule(self, pods=None, **kw):
+        if pods is not None:  # a disruption simulation: timed as confirm
+            return real["schedule"](self, pods=pods, **kw)
+        return timed("live_batches", "live_ms", real["schedule"], self,
+                     **kw)
+
+    kernels.solve_step = step
+    cons.dispatch_counterfactual_rows = dispatch
+    cons.build_disruption_snapshot = (
+        lambda *a, **kw: timed("build", "build_ms", real["build"], *a, **kw))
+    cons.DisruptionSnapshot.advance = (
+        lambda self, *a, **kw: timed("advance", "advance_ms",
+                                     real["advance"], self, *a, **kw))
+    methods.compute_consolidation = (
+        lambda *a, **kw: timed("confirms", "confirm_ms", real["confirm"],
+                               *a, **kw))
+    dctl.simulate_scheduling = (
+        lambda *a, **kw: timed("validations", "validate_ms",
+                               real["validate"], *a, **kw))
+    Provisioner.schedule = schedule
+    stats0 = {k: dict(s) for k, s in (
+        ("drain", termination.STATS), ("bind", binder.STATS),
+        ("orchestrate", oq.STATS))}
+    binder.WAVE_HINTS.clear()
+    try:
+        # ---- provisioning: the fleet through the loop ----
+        cuda_kernels.reset_launches()
+        t0 = time.perf_counter()
+        env = consolidation_env(OPERATOR_NODES, solver=TorchSolver(device))
+        sync()
+        build_ms = (time.perf_counter() - t0) * 1e3
+        prov_launches = dict(cuda_kernels.LAUNCHES)
+        check(env.provisioner.solver.device.type
+              == ("cuda" if on_card else "cpu"), "operator: solver device")
+        provisioning = dict(
+            wall_ms=build_ms, start_nodes=len(env.store.list("nodes")),
+            **{k: acc[k] for k in ("live_batches", "live_ms", "solves",
+                                   "solve_ms")},
+            bind_ms=binder.STATS["rebind_ms"] - stats0["bind"]["rebind_ms"],
+            bound=binder.STATS["bound"] - stats0["bind"]["bound"],
+            compat_launches=prov_launches["compat"],
+            compat_expected=2 * acc["solves"] + acc["gp_sum"])
+        start = _fleet_state(env)
+
+        # ---- disruption: converge as perf/run.py does ----
+        commands: list = []
+        # the stage times of each disruption round that shipped a command:
+        # from the previous command (or the start) to this one's execution
+        command_stages: list = []
+        mark: dict = {}
+        ordinal: dict = {}
+        real_execute = env.disruption._execute
+
+        def stage_delta():
+            now = dict(acc, relax_ms=cons.GLOBAL_STATS["relax_ms"],
+                       t=time.perf_counter())
+            d = {k: now[k] - mark.get(k, now[k]) for k in now}
+            mark.clear()
+            mark.update(now)
+            d["wall_ms"] = d.pop("t") * 1e3
+            return d
+
+        def execute(cmd, method=None):
+            command_stages.append(stage_delta())
+            for name in sorted((nc.name for nc in env.store.list(
+                    "nodeclaims") if nc.name not in ordinal),
+                    key=lambda s: int(s.rsplit("-", 1)[-1])):
+                ordinal[name] = len(ordinal)
+            rung = getattr(method, "last_probe", "")
+            if getattr(method, "last_rung", ""):
+                rung = f"{method.last_rung}/{method.last_reason}"
+            commands.append((
+                type(method).__name__, rung, cmd.action,
+                [ordinal.get(c.name, -1) for c in cmd.candidates],
+                [sorted(it.name for it in claim.instance_types)
+                 for claim in cmd.replacements]))
+            return real_execute(cmd, method)
+
+        env.disruption._execute = execute
+        gmethod = next(mt for mt in env.disruption.methods
+                       if isinstance(mt, methods.GlobalConsolidation))
+        ladder = [mt for mt in env.disruption.methods
+                  if hasattr(mt, "last_probe_reason")]
+        cons.reset_dispatch_log()
+        for k in acc:
+            acc[k] = 0 if isinstance(acc[k], int) else 0.0
+        cuda_kernels.reset_launches()
+        rounds: list = []
+        verdicts: set = set()
+        stage_delta()
+        t_conv = time.perf_counter()
+        stable = 0
+        while len(rounds) < 100 and stable < 3:
+            before_nodes = len(env.store.list("nodes"))
+            snap0 = dict(acc)
+            st0 = {k: dict(s) for k, s in (
+                ("drain", termination.STATS), ("bind", binder.STATS),
+                ("orchestrate", oq.STATS))}
+            relax0 = cons.GLOBAL_STATS["relax_ms"]
+            n_cmd = len(commands)
+            gens0 = dict(cons.DISPATCHES_BY_GEN)
+            t0 = time.perf_counter()
+            env.clock.step(20.0)
+            env.run_until_idle(max_rounds=500)
+            sync()
+            wall = (time.perf_counter() - t0) * 1e3
+            for mt in [gmethod] + ladder:
+                verdicts.add((type(mt).__name__,
+                              getattr(mt, "last_rung", "")
+                              or getattr(mt, "last_probe", ""),
+                              getattr(mt, "last_reason", "")
+                              or getattr(mt, "last_probe_reason", "")))
+            d = {k: acc[k] - snap0[k] for k in acc}
+            rounds.append(dict(
+                wall_ms=wall, nodes=len(env.store.list("nodes")),
+                commands=commands[n_cmd:],
+                global_rung=f"{gmethod.last_rung}/{gmethod.last_reason}",
+                snapshot=dict(builds=d["build"], build_ms=d["build_ms"],
+                              advances=d["advance"],
+                              advance_ms=d["advance_ms"]),
+                probe=dict(dispatches=d["probe_dispatches"],
+                           rows=d["probe_rows"], chunks=d["probe_chunks"],
+                           ms=d["dispatch_ms"],
+                           by_generation={
+                               str(g): n - gens0.get(g, 0)
+                               for g, n in cons.DISPATCHES_BY_GEN.items()
+                               if n != gens0.get(g, 0)}),
+                relax_ms=cons.GLOBAL_STATS["relax_ms"] - relax0,
+                confirms=d["confirms"], confirm_ms=d["confirm_ms"],
+                validations=d["validations"], validate_ms=d["validate_ms"],
+                solves=d["solves"], solve_ms=d["solve_ms"],
+                live_batches=d["live_batches"], live_ms=d["live_ms"],
+                drain_ms=termination.STATS["drain_ms"]
+                - st0["drain"]["drain_ms"],
+                rebind_ms=binder.STATS["rebind_ms"]
+                - st0["bind"]["rebind_ms"],
+                orchestrate_ms=oq.STATS["orchestrate_ms"]
+                - st0["orchestrate"]["orchestrate_ms"]))
+            stable = stable + 1 if rounds[-1]["nodes"] == before_nodes else 0
+        converge_ms = (time.perf_counter() - t_conv) * 1e3
+        conv_launches = dict(cuda_kernels.LAUNCHES)
+        end = _fleet_state(env)
+        # every survivor within its allocatable
+        used: dict = {}
+        for p in env.store.list("pods"):
+            if p.node_name and p.metadata.deletion_timestamp is None:
+                used[p.node_name] = resutil.merge(
+                    used.get(p.node_name, {}), p.effective_requests())
+        over = [n.name for n in env.store.list("nodes")
+                if not resutil.fits(used.get(n.name, {}), n.allocatable)]
+        failures = env.registry.counter(m.DISRUPTION_PROBE_FAILURES).total()
+        rec = dict(
+            provisioning=provisioning, start=start, end=end,
+            commands=commands, command_stages=command_stages,
+            rounds=rounds, converge_ms=converge_ms,
+            verdicts=sorted(verdicts), over_allocatable=over,
+            probe_failures=failures,
+            max_dispatches_per_generation=(
+                cons.max_dispatches_per_generation()),
+            generations_dispatched=len(cons.DISPATCHES_BY_GEN),
+            compat_launches=conv_launches["compat"],
+            compat_expected=(2 * (acc["solves"] + acc["probe_chunks"])
+                             + acc["gp_sum"] + acc["probe_gp_sum"]),
+            totals={k: acc[k] for k in acc},
+            drain_ms=termination.STATS["drain_ms"]
+            - stats0["drain"]["drain_ms"],
+            rebind_ms=binder.STATS["rebind_ms"] - stats0["bind"]["rebind_ms"],
+            last=dict(last))
+        del env
+        return rec
+    finally:
+        kernels.solve_step = real["step"]
+        cons.dispatch_counterfactual_rows = real["dispatch"]
+        cons.build_disruption_snapshot = real["build"]
+        cons.DisruptionSnapshot.advance = real["advance"]
+        methods.compute_consolidation = real["confirm"]
+        dctl.simulate_scheduling = real["validate"]
+        Provisioner.schedule = real["schedule"]
+
+
+def operator_phase(cuda_kernels, kernels) -> tuple:
+    """The operator loop on the card and on the CPU plain path:
+    ``(line, launches, cases)`` — the printed record, the compat launches
+    of the card's run, and its last dispatch's compat products."""
+    import os
+
+    import torch
+
+    from karpenter_tpu_torch.ops import consolidate as cons
+
+    knob = os.environ.get("KARPENTER_RELAX")
+    # the relax rung's default on the card (on) for both paths, so the
+    # CPU plain path takes the same rungs
+    os.environ["KARPENTER_RELAX"] = "1"
+    try:
+        t0 = time.perf_counter()
+        card = operator_loop(None, kernels, cuda_kernels)
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = operator_loop("cpu", kernels, cuda_kernels)
+        cpu_s = time.perf_counter() - t0
+    finally:
+        if knob is None:
+            os.environ.pop("KARPENTER_RELAX", None)
+        else:
+            os.environ["KARPENTER_RELAX"] = knob
+
+    nodes, unbound = card["end"]
+    bound = sum(len(n[4]) for n in nodes)
+    check(len(nodes) == OPERATOR_END_NODES and bound == OPERATOR_NODES
+          and not unbound,
+          f"operator: converged to {len(nodes)} nodes with {bound} pods "
+          f"bound and {len(unbound)} unbound, want {OPERATOR_END_NODES} "
+          f"nodes and {OPERATOR_NODES} pods bound")
+    check(not card["over_allocatable"],
+          f"operator: nodes over their allocatable: "
+          f"{card['over_allocatable'][:5]}")
+    check(card["max_dispatches_per_generation"] <= 1,
+          f"operator: {card['max_dispatches_per_generation']} probe "
+          "dispatches in one cluster-state generation")
+    check(card["probe_failures"] == 0,
+          f"operator: {card['probe_failures']} probe failures")
+    bad = [v for v in card["verdicts"] + cpu["verdicts"]
+           if v[1] == "sequential" and v[2] in ("probe-error", "no-device")]
+    check(not bad, f"operator: a round fell back without the card: {bad}")
+    for label in ("provisioning", None):
+        got = card[label] if label else card
+        check(got["compat_launches"] > 0,
+              f"operator {label or 'disruption'}: compat never launched")
+        check(got["compat_launches"] == got["compat_expected"],
+              f"operator {label or 'disruption'}: compat launches "
+              f"{got['compat_launches']} != 2 + Gp per dispatch "
+              f"({got['compat_expected']})")
+    check(card["totals"]["probe_dispatches"] > 0,
+          "operator: no probe dispatch ran")
+    check(card["start"] == cpu["start"],
+          "operator: the card and the CPU built different fleets")
+    check(card["commands"] == cpu["commands"],
+          f"operator: the card's commands {card['commands']} differ from "
+          f"the CPU plain path's {cpu['commands']}")
+    check(card["end"] == cpu["end"] and len(card["rounds"])
+          == len(cpu["rounds"]),
+          "operator: the card and the CPU plain path end differently")
+
+    # the run's last dispatches, again: on the card and on the CPU
+    args_gpu, step_kw = card["last"]["solve"]
+    solve_gpu_ms, solve_cpu_ms = check_dispatch(args_gpu, step_kw, kernels,
+                                                "operator solve")
+    probe = card["last"]["probe"]
+    shared, Gp, Ep, e_avail, mm, gk, cols = probe["args"]
+    t0 = time.perf_counter()
+    want = cons.dispatch_counterfactual_rows(
+        {k: v.cpu() for k, v in shared.items()}, Gp, Ep, e_avail, mm, gk,
+        cols, max_bins=probe["max_bins"])
+    probe_cpu_ms = (time.perf_counter() - t0) * 1e3
+    for a, b in zip(probe["out"], want):
+        check(a.shape == b.shape and np.array_equal(a, b),
+              "operator: the last probe dispatch differs on the CPU")
+    # both under the profiler: kernels, device time, busy share
+    e_master = torch.zeros((Ep, e_avail.shape[1]), device="cuda")
+    e_master[:e_avail.shape[0]] = torch.from_numpy(
+        np.asarray(e_avail, np.float32)).cuda()
+    varying = cons.chunk_rows(e_master, gk, cols, None, 0,
+                              min(cons.PROBE_CHUNK_ROWS, len(gk)), Gp)
+    traces = {
+        "solve_step": device_times(
+            lambda: kernels.solve_step(args_gpu, **step_kw), 3),
+        "probe_chunk": device_times(
+            lambda: kernels.probe_step(varying, shared, probe["max_bins"],
+                                       mm), 3),
+    }
+    cases = [("operator GxT", [args_gpu[k] for k in (
+                 "g_mask", "g_has", "g_tol", "t_mask", "t_has", "t_tol")]),
+             ("operator 1xB", bins_case(args_gpu, int(
+                 args_gpu["g_demand"].shape[0]), step_kw["max_bins"],
+                 kernels))]
+
+    def summary(rec, seconds):
+        return dict(
+            seconds=seconds, provisioning=rec["provisioning"],
+            converge_ms=rec["converge_ms"], rounds=rec["rounds"],
+            command_stages=rec["command_stages"],
+            end_nodes=len(rec["end"][0]),
+            pods_bound=sum(len(n[4]) for n in rec["end"][0]),
+            drain_ms=rec["drain_ms"], rebind_ms=rec["rebind_ms"],
+            totals=rec["totals"])
+
+    def brief(cmd):
+        method, rung, action, cands, repl = cmd
+        return [method, rung, action, len(cands),
+                cands if len(cands) <= 6 else cands[:3] + ["..."]
+                + cands[-3:], repl]
+
+    line = {"operator": {
+        "nodes": OPERATOR_NODES, "end_nodes": len(nodes), "pods_bound": bound,
+        "commands": [brief(c) for c in card["commands"]],
+        "verdicts": card["verdicts"],
+        "max_dispatches_per_generation":
+            card["max_dispatches_per_generation"],
+        "generations_dispatched": card["generations_dispatched"],
+        "probe_failures": card["probe_failures"],
+        "compat_launches": {"provisioning":
+                            card["provisioning"]["compat_launches"],
+                            "disruption": card["compat_launches"]},
+        "card": summary(card, card_s), "cpu": summary(cpu, cpu_s),
+        "last_solve": {"gpu_ms": solve_gpu_ms, "cpu_ms": solve_cpu_ms,
+                       "Gp": int(args_gpu["g_demand"].shape[0]),
+                       "Bp": step_kw["max_bins"]},
+        "last_probe": {"rows": int(gk.shape[0]), "Gp": Gp, "Ep": Ep,
+                       "cpu_ms": probe_cpu_ms},
+        "traces": traces,
+    }}
+    launches = {"compat": card["provisioning"]["compat_launches"]
+                + card["compat_launches"]}
+    return line, launches, cases
+
+
 def main() -> int:
     import torch
 
@@ -893,6 +1334,11 @@ def main() -> int:
         cuda_kernels, kernels)
     cons_line["consolidation"]["phase_s"] = time.perf_counter() - t0
 
+    # ---- the fourth main path: the operator loop ----
+    t0 = time.perf_counter()
+    op_line, op_launches, op_cases = operator_phase(cuda_kernels, kernels)
+    op_line["operator"]["phase_s"] = time.perf_counter() - t0
+
     # ---- every kernel against its plain version, on the card ----
     _, K, W = args_gpu["g_mask"].shape
     gt_in = [args_gpu[k] for k in ("g_mask", "g_has", "g_tol",
@@ -901,7 +1347,7 @@ def main() -> int:
     rng = np.random.default_rng(0)
     timed = [("main GxT", gt_in), ("main GxM", gm_in),
              ("main 1xB", bins_case(args_gpu, snap.G, Bp, kernels)),
-             *live_cases, *cons_cases,
+             *live_cases, *cons_cases, *op_cases,
              ("scale " + "x".join(map(str, SCALE_SHAPE)),
               compat_case(rng, *SCALE_SHAPE, dev))]
     cases = timed + [("x".join(map(str, shape)), compat_case(rng, *shape, dev))
@@ -934,10 +1380,11 @@ def main() -> int:
         "source": "karpenter_tpu_torch/csrc/compat.cu",
         "replaces": "karpenter_tpu/ops/pallas_kernels.py:62",
         "launches": (launches["compat"] + live_launches["compat"]
-                     + cons_launches["compat"]),
+                     + cons_launches["compat"] + op_launches["compat"]),
         "launches_by_path": {"headline": launches["compat"],
                              "live_round": live_launches["compat"],
-                             "consolidation": cons_launches["compat"]},
+                             "consolidation": cons_launches["compat"],
+                             "operator": op_launches["compat"]},
         "max_abs_err": 0 if mismatches == 0 else 1,
         "tolerance": "exact (one bool per cell)",
         "mismatches": mismatches,
@@ -979,6 +1426,7 @@ def main() -> int:
     print(json.dumps(solve_line))
     print(json.dumps(live_line))
     print(json.dumps(cons_line))
+    print(json.dumps(op_line))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

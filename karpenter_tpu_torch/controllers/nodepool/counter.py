@@ -1,10 +1,13 @@
-"""NodePool usage aggregation: the live capacity a pool owns.
+"""NodePool counter: aggregate owned-node resources into status.
 
 Mirror of the reference's pkg/controllers/nodepool/counter
-(controller.go:69-110). The port's copy of ``aggregate_pool_usage`` from
-``karpenter_tpu/controllers/nodepool/counter.py`` (imports changed): the
-provisioner reads it for a pool's remaining limits. The status-writing
-controller around it comes with the controller plane (ROADMAP.md Queue 1).
+(controller.go:69-110): sums the capacity of every node (and launched-but-
+unregistered nodeclaim) owned by the pool into NodePool.status.resources,
+including a synthetic "nodes" count. The provisioner reads the live
+aggregate for a pool's remaining limits.
+
+The port's copy of ``karpenter_tpu/controllers/nodepool/counter.py``
+(imports changed).
 """
 
 from __future__ import annotations
@@ -35,3 +38,21 @@ def aggregate_pool_usage(store, np) -> dict:
         total = resutil.merge(total, claim.status.capacity)
         total["nodes"] += 1
     return total
+
+
+class NodePoolCounterController:
+    def __init__(self, store):
+        self.store = store
+
+    def on_event(self, event):
+        pass
+
+    def poll(self) -> bool:
+        progressed = False
+        for np in list(self.store.list("nodepools")):
+            total = aggregate_pool_usage(self.store, np)
+            if total != np.status.resources:
+                np.status.resources = total
+                self.store.update("nodepools", np)
+                progressed = True
+        return progressed

@@ -1,17 +1,20 @@
-"""Provisioner: the scheduler-input assembly over a live cluster.
+"""Provisioner: the L4 singleton controller.
 
 Mirror of the reference's pkg/controllers/provisioning/provisioner.go:
-the scheduler inputs (NewScheduler :219-314 — ready nodepools by weight,
-per-pool instance types, the topology domain universe :264-296, daemonset
-overhead, remaining nodepool limits) and the existing-node targets.
+trigger on unschedulable pods (controller.go:52-66), debounce via the
+batcher, snapshot cluster state, build the scheduler inputs (NewScheduler
+:219-314 — ready nodepools by weight, per-pool instance types, the topology
+domain universe :264-296, daemonset overhead), Solve, truncate instance
+types (:363), then create NodeClaims and nominate the pods (:149-160).
 
-The port's copy of part of ``karpenter_tpu/controllers/provisioning/
-provisioner.py`` (imports changed): the cluster-state views, ``collect_
-domains``, ``nodepool_ready`` and the ``Provisioner`` pieces the
-disruption snapshot reads (``solver_inputs``, ``deleting_node_pods``,
-``_existing_nodes``). Its solver defaults to ``TorchSolver()``. The
-provisioning loop itself — ``reconcile``, ``schedule``,
-``create_node_claims`` — is ROADMAP.md Queue 1 item 10.
+The port's copy of ``karpenter_tpu/controllers/provisioning/
+provisioner.py`` (imports changed). Its solver defaults to
+``TorchSolver()``, which runs on CUDA and raises without a card. Left
+out: the flight-recorder spans and anomalies (ROADMAP.md Queue 1 item 9)
+and the admission plane (item 16) — a live batch carrying an admission
+marker (a pod priority or class, a gang annotation, a non-zero
+global-default PriorityClass) raises ``NotImplementedError`` instead of
+solving as a plain batch.
 """
 
 from __future__ import annotations
@@ -19,8 +22,11 @@ from __future__ import annotations
 from karpenter_tpu_torch.api import labels as wk
 from karpenter_tpu_torch.controllers.provisioning.batcher import Batcher
 from karpenter_tpu_torch.models import ClaimTemplate
+from karpenter_tpu_torch.models.topology import Topology
 from karpenter_tpu_torch.scheduling import daemon_schedulable
+from karpenter_tpu_torch.utils import pod as pod_util
 from karpenter_tpu_torch.utils import resources as resutil
+from karpenter_tpu_torch.utils.envknobs import env_bool
 
 
 class ClusterStateView:
@@ -124,23 +130,264 @@ def nodepool_ready(np) -> bool:
     return True
 
 
+def admission_markers(pods, store=None) -> bool:
+    """True when a batch carries any admission marker — a priority field,
+    a named class, a gang annotation, or (with a store) a global-default
+    PriorityClass that would tier the batch: the JAX package's
+    ``AdmissionPlane.engages`` (``admission/plane.py:104``), with its
+    ``KARPENTER_ADMISSION`` switch."""
+    if not env_bool("KARPENTER_ADMISSION", True) or not pods:
+        return False
+    for p in pods:
+        if p.priority is not None or p.priority_class_name:
+            return True
+        if p.metadata.annotations.get(wk.POD_GROUP_ANNOTATION):
+            return True
+    if store is not None:
+        for pc in store.list("priorityclasses"):
+            if pc.global_default and pc.value != 0:
+                return True
+    return False
+
+
 class Provisioner:
     def __init__(self, store, cloud, solver=None, clock=None, batcher=None,
-                 recorder=None, cluster=None):
+                 recorder=None, cluster=None, registry=None, log=None):
+        from karpenter_tpu_torch.operator import metrics as m
+        from karpenter_tpu_torch.operator.logging import NOP
         from karpenter_tpu_torch.utils.clock import Clock
+        from karpenter_tpu_torch.utils.pretty import ChangeMonitor
 
+        self.log = log if log is not None else NOP
         self.store = store
         self.cloud = cloud
         self.clock = clock or Clock()
+        self.registry = registry or m.REGISTRY
         if solver is None:
             from karpenter_tpu_torch.models.solver import TorchSolver
 
             solver = TorchSolver()
         self.solver = solver
-        # the reference's 1s idle / 10s max debounce window (options.go:96-97)
+        # production default: the reference's 1s idle / 10s max debounce
+        # window (options.go:96-97); test environments inject a 0/0 batcher
         self.batcher = batcher or Batcher(self.clock)
         self.recorder = recorder
+        self._change_monitor = ChangeMonitor(clock=self.clock)
         self.cluster = cluster  # state plane; optional
+        # unschedulable-pod retry clock (see _maybe_retry_pending)
+        self._pending_retry_at: float = -1e18
+
+    # -- triggering (provisioning/controller.go:52-107) ------------------
+    def on_event(self, event):
+        if event.kind == "pods":
+            pod = event.obj
+            if event.type != "Deleted" and pod_util.is_provisionable(pod):
+                self.batcher.trigger()
+        elif event.kind == "nodes" and event.type == "Modified":
+            if event.obj.metadata.deletion_timestamp is not None:
+                self.batcher.trigger()
+        elif event.kind == "nodeclaims" and event.type == "Deleted":
+            # a reaped UNREGISTERED claim (liveness TTL, insufficient-
+            # capacity rollback) strands any pod nominated onto capacity
+            # that will now never materialize: re-arm the batcher so the
+            # next round re-solves those pods. REGISTERED claims are
+            # exempt: their node's drain path owns the pods (evict →
+            # recreate → bind), and re-triggering on every consolidation-
+            # wave claim deletion would re-solve the whole displaced set
+            # the binder is about to place.
+            from karpenter_tpu_torch.api.nodeclaim import COND_REGISTERED
+
+            if not event.obj.is_true(COND_REGISTERED):
+                self.batcher.trigger()
+
+    def trigger(self):
+        self.batcher.trigger()
+
+    # how often unschedulable pending pods are re-examined without any
+    # triggering event — the kube-scheduler's unschedulable-queue retry
+    # (and the reference provisioner's periodic singleton reconcile)
+    # compressed to the hermetic runtime
+    PENDING_RETRY_PERIOD = 10.0
+
+    def _maybe_retry_pending(self) -> bool:
+        """Re-arm the batcher for unschedulable pending pods on a slow
+        clock, with no triggering event required: capacity can return
+        WITHOUT one — an in-place offering flip, a reaped unregistered
+        claim, a PDB releasing — and a purely event-driven batcher would
+        strand those pods forever. At most one pod-list scan per
+        PENDING_RETRY_PERIOD of clock, so idle rounds between clock steps
+        stay free."""
+        now = self.clock.now()
+        if now - self._pending_retry_at < self.PENDING_RETRY_PERIOD:
+            return False
+        self._pending_retry_at = now
+        if any(pod_util.is_provisionable(p)
+               for p in self.store.list("pods")):
+            self.batcher.trigger()
+            return True
+        return False
+
+    @property
+    def pending_trigger(self) -> bool:
+        return self.batcher.triggered and self.batcher.ready()
+
+    # -- the solve round (provisioner.go Schedule:316) -------------------
+    def reconcile(self) -> bool:
+        if not self.batcher.triggered and not self._maybe_retry_pending():
+            return False
+        if not self.batcher.ready():
+            return False
+        self.batcher.reset()
+        from karpenter_tpu_torch.operator import metrics as m
+
+        if self.cluster is not None:
+            synced = self.cluster.synced()
+            self.registry.gauge(
+                m.CLUSTER_STATE_SYNCED, "cluster state mirror in sync"
+            ).set(1.0 if synced else 0.0)
+            if not synced:
+                self.batcher.trigger()  # retry next round
+                return False
+        with self.registry.measure(m.SCHEDULING_DURATION):
+            results = self.schedule()
+        if results is None:
+            return False
+        return self.create_node_claims(results)
+
+    def pending_pods(self) -> list:
+        """Provisionable pods, excluding ones nominated onto capacity that
+        is still materializing (the reference's cluster-state nomination
+        serves this role, state/cluster.go Nominate)."""
+        out = []
+        for p in self.store.list("pods"):
+            if not pod_util.is_provisionable(p):
+                continue
+            if p.nominated_node_name:
+                nominated_alive = self.store.try_get(
+                    "nodes", p.nominated_node_name
+                ) is not None or any(
+                    nc.name == p.nominated_node_name
+                    for nc in self.store.list("nodeclaims")
+                )
+                if nominated_alive:
+                    continue  # capacity is materializing; the binder lands it
+                p.nominated_node_name = ""  # stale nomination: re-provision
+            out.append(p)
+        return out
+
+    def schedule(self, pods=None, state_nodes=None, inputs=None,
+                 enodes_base=None, existing_base=None):
+        # nodes are snapshotted BEFORE pods are listed: a pod that binds in
+        # between appears both as pending and in its node's usage, which
+        # over-provisions (safe); the reverse order would under-provision
+        # (provisioner.go:318-329). The disruption simulation passes its own
+        # candidate-free snapshot (disruption/helpers.go:51).
+        live_batch = pods is None  # explicit pods = a disruption simulation
+        if state_nodes is None:
+            state_nodes = self.cluster.nodes() if self.cluster is not None else []
+        if pods is None:
+            pods = self.pending_pods()
+            pods.extend(self.deleting_node_pods(state_nodes, pods))
+            if not pods:
+                return None
+        # disruption simulations may hand in the round's cached solver
+        # inputs (ops/consolidate.py SnapshotCache.inputs_for) — identical
+        # content to a fresh assembly within one cluster-state generation,
+        # which the cache verifies before releasing them
+        if inputs is not None:
+            templates, its_by_pool, overhead, limits, domains = inputs
+        else:
+            templates, its_by_pool, overhead, limits, domains = (
+                self.solver_inputs()
+            )
+
+        # pods with unresolvable PVCs can't schedule: report and drop from
+        # the batch (ValidatePersistentVolumeClaims, volumetopology.go:155)
+        from karpenter_tpu_torch.operator import metrics as m
+        from karpenter_tpu_torch.scheduling.volumetopology import (
+            PVCError,
+            VolumeTopology,
+        )
+
+        vt = VolumeTopology(self.store)
+        valid_pods = []
+        for p in pods:
+            try:
+                vt.validate(p)
+                valid_pods.append(p)
+            except PVCError as e:
+                if self.recorder is not None:
+                    self.recorder.publish("FailedScheduling", str(e), obj=p)
+        # provisioning/metrics.go: queue depth at solve entry + pods the
+        # batch dropped as unresolvable. Only the LIVE batch reports —
+        # disruption counterfactuals must not clobber the gauges (the
+        # reference mutes its simulations the same way, helpers.go:84)
+        if live_batch:
+            self.registry.gauge(
+                m.SCHEDULING_QUEUE_DEPTH, "pods entering the solve"
+            ).set(len(valid_pods))
+            self.registry.gauge(
+                m.IGNORED_PODS, "pods ignored this batch (unresolvable PVCs)"
+            ).set(len(pods) - len(valid_pods))
+        pods = valid_pods
+        if not pods:
+            # explicit-pods callers (disruption simulation) expect a results
+            # object, never None — an all-filtered batch solves to nothing
+            from karpenter_tpu_torch.models.scheduler import SchedulerResults
+
+            return SchedulerResults(new_claims=[], existing_nodes=[], pod_errors={})
+        # live batches with admission markers route through the JAX
+        # package's admission plane, which the port does not have yet:
+        # refuse them rather than solve them as a plain batch
+        if live_batch and admission_markers(pods, self.store):
+            raise NotImplementedError(
+                "Provisioner: a batch with admission markers (pod "
+                "priorities, gang annotations, a default PriorityClass) "
+                "needs the admission plane, ROADMAP.md Queue 1 item 16")
+
+        view = (
+            ClusterStateView(self.cluster, self.store)
+            if self.cluster is not None
+            else StoreClusterView(self.store)
+        )
+        topology = Topology(cluster=view, domains=domains, pods=pods)
+        if enodes_base is not None:
+            # disruption fast path (helpers.simulate_scheduling): the
+            # round's snapshot bundle supplies generation-current
+            # ExistingNode prototypes; forking re-binds them to THIS
+            # solve's topology and fresh mutable state, skipping the O(E)
+            # constructor sweep per confirming simulation
+            existing_nodes = [en.fork(topology) for en in enodes_base]
+        else:
+            existing_nodes = self._existing_nodes(state_nodes, topology)
+        results = self.solver.solve(
+            pods,
+            templates,
+            its_by_pool,
+            topology=topology,
+            existing_nodes=existing_nodes,
+            daemon_overhead=overhead,
+            limits=limits or None,
+            volume_topology=vt,
+            existing_base=existing_base,
+        )
+        # host-routed accounting (live batches only — disruption
+        # counterfactuals must not inflate the counter, helpers.go:84
+        # stance): pods the device compiler handed to the host engine,
+        # by reason
+        if live_batch:
+            routed = getattr(self.solver, "last_device_stats", None) or {}
+            routed = routed.get("host_routed") or {}
+            if routed:
+                ctr = self.registry.counter(
+                    m.PROVISIONING_HOST_ROUTED,
+                    "pods routed to the host engine per live solve, by reason",
+                )
+                for reason, count in routed.items():
+                    if count:
+                        ctr.inc(count, reason=reason)
+        results.truncate_instance_types()
+        return results
 
     def solver_inputs(self):
         """Per-nodepool solver inputs: (templates, instance types by pool,
@@ -229,3 +476,60 @@ class Provisioner:
                     daemon_resources = resutil.merge(daemon_resources, p.effective_requests())
             out.append(ExistingNode(sn, topology, daemon_resources, kube=self.store))
         return out
+
+    # -- claim creation (provisioner.go CreateNodeClaims:149) ------------
+    def create_node_claims(self, results) -> bool:
+        from karpenter_tpu_torch.operator import metrics as m
+
+        created = False
+        for claim in results.new_claims:
+            nc = claim.to_node_claim()
+            self.store.create("nodeclaims", nc)
+            self.registry.counter(m.NODECLAIMS_CREATED, "nodeclaims created").inc(
+                nodepool=claim.template.nodepool_name)
+            created = True
+            for p in claim.pods:
+                if p.node_name:
+                    continue  # drain pre-provisioning: pod is still bound
+                p.nominated_node_name = nc.name
+                self.store.update("pods", p)
+        # pods placed on existing capacity are nominated so the next solve
+        # round doesn't re-provision for them (Results.Record, scheduler.go:96)
+        for node in results.existing_nodes:
+            pods = getattr(node, "scheduled_pods", None) or []
+            for p in pods:
+                if p.node_name:
+                    continue  # drain pre-provisioning: pod is still bound
+                p.nominated_node_name = node.name
+                self.store.update("pods", p)
+            if pods and self.cluster is not None:
+                self.cluster.nominate(node.name)
+        if results.new_claims:
+            # provisioner.go:149's "created nodeclaim" log line, one per round
+            self.log.info(
+                "launched nodeclaims",
+                claims=len(results.new_claims),
+                pods=sum(len(c.pods) for c in results.new_claims),
+                pools=",".join(sorted({
+                    c.template.nodepool_name for c in results.new_claims})),
+            )
+        for pod_key, err in results.pod_errors.items():
+            if self.recorder is not None and self._change_monitor.has_changed(
+                pod_key, err
+            ):
+                # emit-on-change (pretty.ChangeMonitor): a pod stuck with
+                # the SAME error re-solves every batch but reports once;
+                # a different error (or a day of stasis) reports again
+                self.recorder.publish(
+                    "FailedScheduling", f"pod {pod_key} incompatible: {err}"
+                )
+        # pods that scheduled this round (onto new claims OR existing
+        # capacity) drop out of the monitor so a later relapse reports
+        # immediately
+        for claim in results.new_claims:
+            for p in claim.pods:
+                self._change_monitor.forget(p.key())
+        for node in results.existing_nodes:
+            for p in getattr(node, "scheduled_pods", None) or []:
+                self._change_monitor.forget(p.key())
+        return created

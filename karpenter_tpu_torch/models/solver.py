@@ -20,12 +20,14 @@ estimate (demand, topology-class and LP-floor lower bounds,
 ``ops/relax.py``) and ``level_bits``, the doubling re-run while bins run
 dry (a plain synchronous re-run), the single-buffer read back, the host
 decode, the existing-node and topology commits and the nodepool-limit
-debit before the host pass.
+debit before the host pass, and ``existing_base=``: a confirming
+simulation's existing-node tensors sliced out of the disruption round's
+snapshot (``DisruptionSnapshot.derive_esnap``) instead of re-tensorized.
 
-Not in this slice (see ROADMAP.md): ``existing_base=`` (the disruption
-snapshot) and ``tier_of=`` (the fused admission round), which raise
-``NotImplementedError``; the native C++ rung, the small-batch host
-cutoff, the mesh, replay capsules and the decision ledger.
+Not in this slice (see ROADMAP.md): ``tier_of=`` (the fused admission
+round), which raises ``NotImplementedError``; the native C++ rung, the
+small-batch host cutoff, the mesh, replay capsules and the decision
+ledger.
 """
 
 from __future__ import annotations
@@ -107,11 +109,10 @@ class TorchSolver(Solver):
               existing_nodes=(), daemon_overhead=None, limits=None,
               max_bins: int | None = None, volume_topology=None,
               existing_base=None, tier_of=None) -> SchedulerResults:
-        if existing_base is not None or tier_of is not None:
+        if tier_of is not None:
             raise NotImplementedError(
-                "TorchSolver: existing_base= (the disruption snapshot) and "
-                "tier_of= (the fused admission round) are later slices of "
-                "the port (ROADMAP.md Queue 1)")
+                "TorchSolver: tier_of= (the fused admission round) is a "
+                "later slice of the port (ROADMAP.md Queue 1 item 16)")
         has_topology = bool(getattr(
             topology, "has_groups",
             topology is not None and not isinstance(topology, NullTopology)))
@@ -186,7 +187,15 @@ class TorchSolver(Solver):
         esnap = None
         if existing_nodes:
             t0 = time.perf_counter()
-            esnap = tensorize_existing(snap, existing_nodes, device_plan)
+            if existing_base is not None and device_plan is None:
+                # disruption fast path: slice this sub-solve's existing-node
+                # tensors out of the round's shared snapshot
+                # (ops/consolidate.py DisruptionSnapshot.derive_esnap) —
+                # None when a node or group fails to map, and the full
+                # build below runs
+                esnap = existing_base.derive_esnap(snap, existing_nodes)
+            if esnap is None:
+                esnap = tensorize_existing(snap, existing_nodes, device_plan)
             stages["tensorize_ms"] += (time.perf_counter() - t0) * 1000.0
         claims, retry, ecommits = self._run_and_decode(
             snap, esnap, max_bins, stages)

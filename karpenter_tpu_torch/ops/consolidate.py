@@ -40,16 +40,23 @@ claims a joint row may open, default 1), ``KARPENTER_GLOBAL_REPAIR_MAX``
 the retirement credit, 0) and ``KARPENTER_GLOBAL_FORMULATE_LOOP`` (the
 per-candidate loops as the oracle of the vectorised formulation).
 
-Left out (later slices, ROADMAP.md Queue 1): the ``SnapshotCache``,
-``DisruptionSnapshot.advance`` and the delta registry across rounds; the
-native probe rung; replay capture; the per-generation dispatch log and
-``JointSeed`` the disruption methods read.
+Across rounds, ``SnapshotCache`` keeps one snapshot per cluster-state
+generation for every probe and confirming simulation of a round, and
+patches it to a later generation from the cluster's structured delta
+journal (``DisruptionSnapshot.advance``) instead of rebuilding it;
+``JointSeed`` re-keys the joint dispatch's answer for the per-candidate
+probes of the same generation, and ``DISPATCHES_BY_GEN`` counts the probe
+dispatches of each generation (the contract is at most one).
+
+Left out (later slices, ROADMAP.md Queue 1): the native probe rung and
+replay capture.
 """
 
 from __future__ import annotations
 
 import math
 import time
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -81,6 +88,33 @@ def _formulate_loop() -> bool:
     vectorised construction would otherwise run: the bit-exactness oracle
     of the gather."""
     return env_bool("KARPENTER_GLOBAL_FORMULATE_LOOP", False)
+
+
+# per-generation probe-dispatch accounting: the short-circuit contract is
+# at most ONE batched probe dispatch per cluster-state generation — read
+# through ``max_dispatches_per_generation``. Bounded LRU so a long-lived
+# process never grows the log without limit.
+_DISPATCH_GEN_CAP = 4096
+DISPATCHES_BY_GEN: "OrderedDict[int, int]" = OrderedDict()
+
+
+def note_probe_dispatch(generation) -> None:
+    """One probe-dispatch invocation (prefix, single, or joint rows)
+    against a bundle at ``generation`` — called by
+    :meth:`DisruptionSnapshot.dispatch`, the one funnel every
+    consolidation counterfactual batch runs through."""
+    n = DISPATCHES_BY_GEN.pop(generation, 0)
+    DISPATCHES_BY_GEN[generation] = n + 1
+    while len(DISPATCHES_BY_GEN) > _DISPATCH_GEN_CAP:
+        DISPATCHES_BY_GEN.popitem(last=False)
+
+
+def reset_dispatch_log() -> None:
+    DISPATCHES_BY_GEN.clear()
+
+
+def max_dispatches_per_generation() -> int:
+    return max(DISPATCHES_BY_GEN.values(), default=0)
 
 
 class DisruptionSnapshot:
@@ -205,6 +239,26 @@ class DisruptionSnapshot:
         self._contrib_ok[r] = ok
         self._contrib_built[r] = True
 
+    def _contrib_invalidate(self, pids):
+        """Mark rows dirty after a delta advance: the next gather
+        recomputes exactly these rows and keeps every other one."""
+        if self._contrib_built is None:
+            return
+        E = self.esnap.E
+        if len(self._contrib_built) < E:
+            grow = E - len(self._contrib_built)
+            self._contrib_rows = np.concatenate(
+                [self._contrib_rows,
+                 np.zeros((grow, self.snap.G), dtype=np.int32)])
+            self._contrib_ok = np.concatenate(
+                [self._contrib_ok, np.zeros(grow, dtype=bool)])
+            self._contrib_built = np.concatenate(
+                [self._contrib_built, np.zeros(grow, dtype=bool)])
+        for pid in pids:
+            r = self.esnap.row_of.get(pid)
+            if r is not None:
+                self._contrib_built[r] = False
+
     def type_price_vectors(self):
         """``(p_cat, name_idx)``: cheapest AVAILABLE offering price per
         instance-type NAME over the snapshot's catalog, cached."""
@@ -245,6 +299,152 @@ class DisruptionSnapshot:
             if g is not None:
                 base[g] += 1
         return base
+
+    # -- delta maintenance (tensorize.py's existing-node delta contract) --
+
+    def _make_enode(self, state_node, store):
+        """One ExistingNode prototype from live state — the per-node body
+        of provisioner._existing_nodes, for dirty/added rows."""
+        from karpenter_tpu_torch.models.existing import ExistingNode
+        from karpenter_tpu_torch.scheduling import (
+            daemon_schedulable,
+            label_requirements,
+        )
+        from karpenter_tpu_torch.utils import resources as resutil
+
+        sn = state_node.snapshot()
+        taints = sn.taints()
+        node_reqs = label_requirements(sn.labels()) if self.daemons else None
+        daemon_resources: dict = {}
+        for p in self.daemons:
+            if daemon_schedulable(p, taints, node_reqs):
+                daemon_resources = resutil.merge(
+                    daemon_resources, p.effective_requests())
+        return ExistingNode(sn, self.topology, daemon_resources, kube=store)
+
+    def advance(self, cluster, store, deltas, generation) -> bool:
+        """Patch this bundle to ``generation`` from the cluster's structured
+        delta journal instead of rebuilding. Returns False when any delta
+        is inexpressible — opaque entries, a pod whose signature matches no
+        tensorized group, topology-compiled plans, nodepool limits (usage
+        drifts with node churn), or a churn so large a rebuild is cheaper
+        — and the caller re-tensorizes from scratch; ``advance_refusal``
+        names the cause."""
+        from karpenter_tpu_torch.utils import pod as pod_util
+
+        self.advance_refusal = None
+        if self.plan is not None or self.topology is None:
+            self.advance_refusal = "plan"
+            return False
+        if self.inputs[3]:
+            # nodepool limits are remaining = spec - usage: every node
+            # add/delete moves usage, and the cached inputs would go stale
+            self.advance_refusal = "limits"
+            return False
+        dirty_pids: set = set()
+        pod_events = []
+        for d in deltas:
+            if d is None:
+                self.advance_refusal = "opaque-entry"
+                return False  # opaque: nodepool/daemonset/resync
+            if d[0] == "node":
+                dirty_pids.add(d[1])
+            else:  # ("pod", pod, node_name | None, gone)
+                pod_events.append(d)
+
+        # pods first: register new/refreshed pods onto the group axis (so
+        # contribs_for keeps working for rebound replicas) and attribute
+        # their nodes as dirty
+        for _, pod, node_name, gone in pod_events:
+            if node_name:
+                sn = cluster.node_by_name(node_name)
+                if sn is not None:
+                    dirty_pids.add(sn.provider_id)
+                # a vanished node has its own ("node", pid) entry
+            if gone:
+                continue
+            if not device_basic_eligible(pod):
+                if not node_name:
+                    self.advance_refusal = "ineligible-pending"
+                    return False  # pending pods must stay expressible
+                sn = cluster.node_by_name(node_name)
+                if sn is not None:
+                    # the candidate's pods left the device vocabulary:
+                    # queries naming it fall back to the sequential scan,
+                    # exactly like an unprobeable candidate at build
+                    self.unprobeable.add(sn.provider_id)
+                    self.col_by_pid.pop(sn.provider_id, None)
+                continue
+            g = self.sig_to_group.get(interned_signature(pod))
+            if g is None:
+                self.advance_refusal = "unseen-signature"
+                return False  # unseen scheduling shape: new group/vocab
+            self.gidx_of[pod.uid] = g
+
+        # node rows: rebuild dirty, append new, mask gone/ineligible
+        esnap = self.esnap
+        removed, dirty_nodes, added_nodes, added_pids = [], [], [], []
+        for pid in dirty_pids:
+            sn = cluster.node_for(pid)
+            eligible = sn is not None and not (
+                sn.marked_for_deletion or sn.deleting())
+            row = esnap.row_of.get(pid)
+            if eligible:
+                en = self._make_enode(sn, store)
+                if row is None:
+                    added_nodes.append(en)
+                    added_pids.append(pid)
+                else:
+                    dirty_nodes.append(en)  # revives masked rows too
+            else:
+                if row is not None and esnap.live[row]:
+                    removed.append(pid)
+                self.col_by_pid.pop(pid, None)
+        # removals are cheap in-place masks (no row rebuild, no splice),
+        # so an eviction wave's drained nodes never count against the
+        # delta budget — only rows that must actually re-tensorize do
+        churn = len(dirty_nodes) + len(added_nodes)
+        if churn > max(16, esnap.E // 2):
+            self.advance_refusal = "churn"
+            return False  # a wave: rebuilding also re-compacts the E axis
+        t_delta = time.perf_counter()
+        esnap.apply_delta(
+            self.snap, dirty=dirty_nodes, removed=removed, added=added_nodes)
+        GLOBAL_STATS["tensorize_delta_ms"] += (
+            time.perf_counter() - t_delta) * 1000.0
+        # formulation rows ride the delta too: exactly the touched rows
+        # recompute on next gather, every other row is reused verbatim
+        self._contrib_invalidate(
+            [en.state_node.provider_id for en in dirty_nodes]
+            + added_pids + removed)
+        for pid in added_pids:
+            self.col_by_pid[pid] = esnap.row_of[pid]
+            self.build_key.add(pid)
+        for en in dirty_nodes:
+            pid = en.state_node.provider_id
+            if pid not in self.unprobeable:
+                self.col_by_pid[pid] = esnap.row_of[pid]
+
+        # pending baseline + pre-provision targets, from live state
+        pending = [p for p in store.list("pods") if pod_util.is_provisionable(p)]
+        base = np.zeros(self.snap.G, dtype=np.int32)
+        for p in pending:
+            g = self.gidx_of.get(p.uid)
+            if g is None:
+                self.advance_refusal = "unseen-pending"
+                return False  # a pod the journal never surfaced
+            base[g] += 1
+        self.pending = pending
+        self.deleting_pods = [
+            p
+            for sn in cluster.state_nodes()
+            if sn.marked_for_deletion or sn.deleting()
+            for p in sn.reschedulable_pods()
+        ]
+        self.base = self._with_deleting(base)
+        self.generation = generation
+        self._shared = None  # the padded-arg cache carries esnap rows
+        return True
 
     # -- simulation fast path (the confirming simulation's inputs) -------
 
@@ -326,6 +526,9 @@ class DisruptionSnapshot:
         int64 numpy. ``max_bins`` caps the fresh claims a row may open
         (1 is the reference's m→1 rule). ``e_zero_cols[i]`` holds the
         existing-node columns row i removes."""
+        # per-generation invocation accounting: the short-circuit contract
+        # (one probe dispatch per generation) is read off this log
+        note_probe_dispatch(self.generation)
         shared, (Gp, Ep) = self._shared_args()
         return dispatch_counterfactual_rows(
             shared, Gp, Ep, self.esnap.e_avail, self.max_minv,
@@ -511,6 +714,137 @@ def build_disruption_snapshot(provisioner, cluster, store, candidates):
             for p in sn.reschedulable_pods()
         ],
     )
+
+
+class SnapshotCache:
+    """Round-scoped memo of the latest :class:`DisruptionSnapshot`, keyed
+    on the cluster-state generation. One instance lives on the disruption
+    controller's context so Emptiness → Global → MultiNode → SingleNode →
+    validation share one tensorization per generation, and a later
+    generation is reached by a delta advance where the journal allows.
+    ``STATS`` counts builds, advances, hits and refusals by cause."""
+
+    def __init__(self):
+        self._bundle = None
+        self._neg = None  # (generation, build_key) of a failed build
+        self._last_refusal = None  # why the last delta-advance declined
+        self.stats = {"builds": 0, "advances": 0, "hits": 0,
+                      "negative_hits": 0, "refusals": {}}
+
+    def get(self, provisioner, cluster, store, candidates, registry=None):
+        from karpenter_tpu_torch.operator import metrics as m
+
+        generation = cluster.consolidation_state()
+        key = frozenset(c.provider_id for c in candidates)
+        b = self._bundle
+        if b is not None and b.generation == generation and key <= b.build_key:
+            self.stats["hits"] += 1
+            if registry is not None:
+                registry.counter(
+                    m.DISRUPTION_SNAPSHOT_CACHE_HITS,
+                    "disruption probes served from the snapshot cache",
+                ).inc(kind="snapshot")
+            return b
+        if b is not None and b.generation < generation:
+            # incremental maintenance: patch the bundle from the cluster's
+            # structured delta journal instead of re-tensorizing the fleet;
+            # anything the journal can't express falls through to the
+            # full rebuild below
+            b2 = self._try_advance(cluster, store, generation, registry)
+            if b2 is not None and key <= b2.build_key:
+                return b2
+        if self._neg == (generation, key):
+            # an inexpressible build is generation-stable: don't re-pay the
+            # assembly for every method in the round
+            self.stats["negative_hits"] += 1
+            if registry is not None:
+                registry.counter(
+                    m.DISRUPTION_SNAPSHOT_CACHE_HITS,
+                    "disruption probes served from the snapshot cache",
+                ).inc(kind="negative")
+            return None
+        if registry is not None:
+            registry.counter(
+                m.DISRUPTION_SNAPSHOT_CACHE_MISSES,
+                "disruption snapshot rebuilds (generation bump or wider "
+                "candidate set)",
+            ).inc()
+        b = build_disruption_snapshot(provisioner, cluster, store, candidates)
+        self.stats["builds"] += 1
+        if b is not None:
+            self._bundle = b
+            self._neg = None
+        else:
+            self._neg = (generation, key)
+        return b
+
+    def current(self, cluster):
+        """The cached bundle when still generation-current, else None —
+        the gate every simulation fast-path consumer must pass: a bundle
+        whose generation matches the cluster's is a faithful mirror of
+        live state (every informer mutation bumps the counter)."""
+        b = self._bundle
+        if (
+            b is not None
+            and cluster is not None
+            and b.generation == cluster.consolidation_state()
+        ):
+            return b
+        return None
+
+    def refresh(self, provisioner, cluster, store, registry=None):
+        """``current``, but a stale bundle first gets one delta-advance
+        attempt — NEVER a rebuild (consumers here want the fast path if
+        it's cheap, not to pay a tensorization the probes didn't ask for).
+        Serves the confirming simulations and the controller's validation
+        round, which run between probe queries at generations the probes
+        never saw."""
+        if cluster is None or self._bundle is None:
+            return None
+        b = self._bundle
+        generation = cluster.consolidation_state()
+        if b.generation == generation:
+            return b
+        if b.generation < generation:
+            return self._try_advance(cluster, store, generation, registry)
+        return None
+
+    def _try_advance(self, cluster, store, generation, registry):
+        """One delta-advance attempt on the cached bundle (shared by
+        ``get`` and ``refresh``). Returns the advanced bundle or None
+        (opaque/inexpressible/gap)."""
+        b = self._bundle
+        deltas = getattr(cluster, "deltas_since", lambda g: None)(b.generation)
+        if deltas is None:
+            self._refused("journal-gap")
+            return None
+        if not b.advance(cluster, store, deltas, generation):
+            self._refused(b.advance_refusal or "opaque-entry")
+            return None
+        self._last_refusal = None
+        self.stats["advances"] += 1
+        if registry is not None:
+            from karpenter_tpu_torch.operator import metrics as m
+
+            registry.counter(
+                m.DISRUPTION_SNAPSHOT_CACHE_HITS,
+                "disruption probes served from the snapshot cache",
+            ).inc(kind="delta")
+        return b
+
+    def _refused(self, reason):
+        self._last_refusal = reason
+        refusals = self.stats["refusals"]
+        refusals[reason] = refusals.get(reason, 0) + 1
+
+    def inputs_for(self, cluster):
+        """The cached solver inputs when still generation-current, else
+        None — lets the confirming simulations skip re-assembling
+        templates/catalog/overhead inside one disruption round. Safe
+        because every structural input change bumps the generation and the
+        catalog objects are shared by identity."""
+        b = self.current(cluster)
+        return b.inputs if b is not None else None
 
 
 def _bundle_for(provisioner, cluster, store, candidates, cache, registry,
@@ -761,6 +1095,12 @@ GLOBAL_STATS = {
     "round_repair_ms": 0.0,
     "relax_ms": 0.0,
     "repair_drops": 0,
+    # the round's shared snapshot acquisition (build or delta-advance),
+    # hoisted out of formulate_ms by the controller's prewarm
+    "bundle_ms": 0.0,
+    # time inside ExistingSnapshot.apply_delta when the cache advanced a
+    # snapshot across an eviction wave instead of rebuilding it
+    "tensorize_delta_ms": 0.0,
 }
 
 
@@ -831,6 +1171,57 @@ class JointPlan:
     @property
     def selected(self):
         return [self._candidates[i] for i in self.selected_idx]
+
+
+class JointSeed:
+    """The joint dispatch's answer re-keyed for the per-candidate probes:
+    the prefix criterion verdicts ARE MultiNode's capped question over the
+    same disruption-cost order (every criterion row depends only on its
+    own prefix), and the single rows — when the dispatch carried them —
+    ARE SingleNodeConsolidation's per-candidate question scored by the
+    shared ``_single_criterion``. So within one cluster-state generation
+    the ladder's probes answer off this seed instead of re-paying a device
+    dispatch; any state bump invalidates it (generation check at use
+    time), and any order/membership mismatch between the querying
+    method's candidate list and the seeded pool declines the seed."""
+
+    def __init__(self, generation, pids, prefix_feasible, definitive,
+                 single_mask):
+        self.generation = generation
+        self.pids = tuple(pids)
+        self.prefix_feasible = np.asarray(prefix_feasible, dtype=bool)
+        self.definitive = bool(definitive)
+        self.single_mask = (
+            None if single_mask is None
+            else np.asarray(single_mask, dtype=bool))
+
+    def valid(self, cluster) -> bool:
+        return (cluster is not None
+                and cluster.consolidation_state() == self.generation)
+
+    def _aligned(self, pids) -> bool:
+        n = len(pids)
+        return bool(n) and tuple(pids) == self.pids[:n]
+
+    def prefix_answer(self, pids):
+        """``(k, definitive)`` for a capped prefix query over the same
+        candidate order — exactly what ``batched_feasible_prefix`` would
+        have dispatched — or None when the query is not a prefix of the
+        seeded pool."""
+        if not self._aligned(pids):
+            return None
+        feas = self.prefix_feasible[: len(pids)]
+        ks = np.flatnonzero(feas)
+        return (0 if ks.size == 0 else int(ks[-1]) + 1), self.definitive
+
+    def single_answer(self, pids):
+        """``(mask, definitive)`` for a per-candidate query — exactly
+        ``batched_single_feasible``'s answer (the joint path is always
+        plan-free, so its misses are definitive) — or None when the seed
+        carried no single rows or the query order mismatches."""
+        if self.single_mask is None or not self._aligned(pids):
+            return None
+        return self.single_mask[: len(pids)].copy(), True
 
 
 def joint_retirement_plan(provisioner, cluster, store, candidates,

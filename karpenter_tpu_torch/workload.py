@@ -12,6 +12,13 @@
   (``diverse_pods``, the copy of ``perf/configs.py``'s) provisioned onto
   it, with a real ``Topology`` and every node an ``ExistingNode``. At
   full size: 1,128 nodes and 5,000 pods (seed 42).
+- **underutilized fleet** (``underutilized_fleet``): the end state of the
+  consolidation configs written into a store directly, for the probe's
+  entry points.
+- **operator fleet** (``consolidation_env``): the same fleet built through
+  the port's ``Environment`` — deployments, provisioning, binding and the
+  scale-down — with the disruption controller armed, for the operator
+  loop.
 """
 
 from __future__ import annotations
@@ -329,3 +336,60 @@ def underutilized_fleet(n_nodes: int, n_groups: int | None = None,
     candidates = sorted(get_candidates(cluster, store, cloud, clock),
                         key=lambda c: c.disruption_cost)
     return store, cluster, provisioner, candidates
+
+
+def consolidation_env(n_nodes: int, n_groups: int | None = None,
+                      solver=None):
+    """The port's ``Environment`` holding the underutilized fleet, built
+    through the operator loop: the copy of ``perf/configs.py:107
+    config4_consolidation_env`` (``n_groups`` None: ``n_nodes``
+    deployments of 3 replicas of 5 cpu / 10 GiB) and ``:154
+    config4_xl_env`` (``n_groups`` deployments of ``3·per_group``
+    replicas, ``per_group = n_nodes // n_groups``). One ``xl`` type (16
+    cpu, 64 GiB), one ``default`` pool (consolidate at once, a 100%
+    budget), ``spot_to_spot_consolidation`` on. The deployments are
+    provisioned and bound, then scaled to a third; the environment is
+    returned with the disruption controller armed (``poll_period`` 0),
+    before its first round. ``solver`` None means ``TorchSolver()`` (CUDA).
+    """
+    from karpenter_tpu_torch.api.nodepool import NodePool
+    from karpenter_tpu_torch.api.objects import Deployment, ObjectMeta
+    from karpenter_tpu_torch.cloudprovider.catalog import make_instance_type
+    from karpenter_tpu_torch.operator import Environment
+    from karpenter_tpu_torch.operator.options import Options
+
+    env = Environment(
+        instance_types=[make_instance_type("xl", 16, 64)],
+        solver=solver,
+        enable_disruption=True,
+        options=Options.from_env(
+            feature_gates={"spot_to_spot_consolidation": True}),
+    )
+    # disruption idles until the fleet stands: poll() is gated by cluster
+    # sync, which needs at least one reconcile sweep first
+    env.disruption.poll_period = float("inf")
+    pool = NodePool(metadata=ObjectMeta(name="default"))
+    pool.spec.disruption.consolidate_after = 0.0
+    pool.spec.disruption.budgets[0].nodes = "100%"
+    env.create("nodepools", pool)
+    if n_groups is None:
+        replicas, kept, count, rounds = 3, 1, n_nodes, 200
+    else:
+        per_group = max(n_nodes // n_groups, 1)
+        replicas, kept, count, rounds = 3 * per_group, per_group, n_groups, 400
+    deploys = [
+        Deployment(metadata=ObjectMeta(name=f"d{i}"), replicas=replicas,
+                   template=_pod(f"d{i}-tpl", FLEET_POD_CPU,
+                                 FLEET_POD_MEM_GIB))
+        for i in range(count)
+    ]
+    for d in deploys:
+        env.store.create("deployments", d)
+    env.run_until_idle(max_rounds=rounds)
+    # scale every deployment to a third: the fleet drops to ~1/3 util
+    for d in deploys:
+        d.replicas = kept
+        env.store.update("deployments", d)
+    env.run_until_idle(max_rounds=rounds)
+    env.disruption.poll_period = 0.0
+    return env

@@ -1,12 +1,14 @@
 """The port stands alone: no JAX, nothing of the JAX package.
 
-- A solve and a joint consolidation round (``joint_retirement_plan`` on
-  a small underutilized fleet) through the port in a fresh interpreter
-  load no ``jax`` module and no ``karpenter_tpu`` module.
+- A solve, a joint consolidation round (``joint_retirement_plan`` on
+  a small underutilized fleet), and the operator loop — an
+  ``Environment`` provisioning round and a disruption round that ships a
+  command — through the port in a fresh interpreter load no ``jax``
+  module and no ``karpenter_tpu`` module.
 - No file of ``karpenter_tpu_torch/`` imports either (AST scan, so lazy
   imports inside functions count too).
-- ``TorchSolver()`` with no device raises when CUDA is absent instead of
-  dropping to the CPU.
+- ``TorchSolver()`` with no device, and an ``Environment()`` with no
+  solver, raise when CUDA is absent instead of dropping to the CPU.
 """
 
 import ast
@@ -36,10 +38,20 @@ from karpenter_tpu_torch.ops.consolidate import joint_retirement_plan
 from karpenter_tpu_torch.workload import underutilized_fleet
 store, cluster, prov, cands = underutilized_fleet(12, device="cpu")
 plan = joint_retirement_plan(prov, cluster, store, cands, want_singles=True)
+from karpenter_tpu_torch.models import TorchSolver as TS
+from karpenter_tpu_torch.workload import consolidation_env
+env = consolidation_env(9, solver=TS(device="cpu"))
+provisioned = len(env.store.list("nodes"))
+env.clock.step(20.0)
+env.run_until_idle()
 print(json.dumps({"new": sorted(loaded() - before),
                   "claims": res.node_count(),
                   "errors": len(res.pod_errors),
-                  "retired": len(plan.selected_idx)}))
+                  "retired": len(plan.selected_idx),
+                  "provisioned": provisioned,
+                  "consolidated": len(env.store.list("nodes")),
+                  "bound": sum(1 for p in env.store.list("pods")
+                               if p.node_name)}))
 """
 
 
@@ -56,6 +68,8 @@ def test_port_solve_loads_no_jax():
     assert got["new"] == []
     assert got["claims"] > 0 and got["errors"] == 0
     assert got["retired"] >= 2
+    assert got["provisioned"] == 9
+    assert got["consolidated"] == 3 and got["bound"] == 9
 
 
 def test_no_file_imports_jax_or_the_jax_package():
@@ -83,6 +97,21 @@ def test_default_device_raises_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TorchSolver()
     assert TorchSolver(device="cpu").device.type == "cpu"
+
+
+def test_default_environment_raises_without_cuda(monkeypatch):
+    """``Environment()`` with no solver means ``TorchSolver()`` (CUDA): it
+    raises without a card, and runs on the CPU only when asked."""
+    from karpenter_tpu_torch.models import TorchSolver
+    from karpenter_tpu_torch.operator import Environment
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Environment()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Environment(enable_disruption=True)
+    env = Environment(solver=TorchSolver(device="cpu"))
+    assert env.provisioner.solver.device.type == "cpu"
 
 
 def test_cuda_tensors_never_take_the_plain_version():

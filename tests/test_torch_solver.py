@@ -156,12 +156,16 @@ def test_bin_axis_doubling_matches():
 
 
 def test_unsupported_inputs_raise():
-    """The disruption snapshot and the fused admission round are later
-    slices of the port: both inputs raise rather than being ignored."""
+    """The fused admission round is a later slice of the port: ``tier_of``
+    raises rather than being ignored. ``existing_base`` (the disruption
+    snapshot, ported with the operator loop) is read only to slice the
+    existing-node tensors, so a batch without existing nodes solves as
+    it would without it (its parity is in ``test_torch_operator.py``)."""
     tp, tt, tits = port_side("headline")
     solver = TorchSolver(device="cpu")
-    with pytest.raises(NotImplementedError, match="existing_base"):
-        solver.solve(tp[:10], tt, tits, existing_base=object())
+    want = _claims(solver.solve(tp[:10], tt, tits))
+    assert _claims(solver.solve(tp[:10], tt, tits,
+                                existing_base=object())) == want
     with pytest.raises(NotImplementedError, match="tier_of"):
         solver.solve(tp[:10], tt, tits, tier_of={})
 
