@@ -81,10 +81,46 @@ It imports nothing of JAX or of ``karpenter_tpu``.
    the same; the run's last solve and probe dispatches are re-run on the
    CPU (bit-equal) and traced, and the last solve's products join the
    compat cases.
+9. The admission plane, the fifth main path, on the card and on the CPU
+   plain path: ``workload.priority_mix()`` (5,000 pods, three tiers) and
+   ``gang_mix()`` (3,024 pods, 20 pod-groups) through
+   ``AdmissionPlane.solve_round`` with ``TorchSolver()``, held against the
+   port's tiered-FFD oracle, and ``preempt_env(8)`` with eight
+   high-priority pods through ``Environment``, each run with the launch
+   counts zeroed just before and read just after. priority-mix must
+   fuse its three tiers into one dispatch and place all 5,000 pods in
+   tier order within 2% of the oracle's nodes; gang-mix must pay 21
+   dispatches, place 19 gangs atomically, route the starved one and bind
+   no gang partly; preempt-mix must bind 8 of 8 after 8 confirmed
+   preemptions and 16 evictions, every eviction from a confirmed,
+   complete victim set, with the victims probed on the card. The card
+   and the CPU give the same claims, errors, reports and evictions;
+   compat launches 2 + Gp per solve step and probe chunk; each family's
+   last dispatch (and the last probe) is re-run on the CPU, bit-equal;
+   the fused dispatch is traced; its G×T and 1×Bp products, gang-mix's
+   G×T and the probe's G×T and 1×(Np·Bp) join the compat cases.
+10. The interruption path, the sixth main path: the spot storm of
+   ``perf/run.py``'s ``run_spot`` (``workload.spot_storm``) on
+   ``spot_env(100)`` — cut from 1,000 nodes, see ``SPOT_NODES`` — with
+   ``ChaosCloud(random.Random(7))``, 10 rounds, risk-aware (λ 2.0) and
+   risk-blind (λ 0) on the card, the risk-aware leg again on the CPU
+   plain path, ``KARPENTER_RELAX=1`` on both. Each leg must give the JAX
+   package's counts (notices, creates, proactive drains, degradations,
+   end nodes, pods bound, end cost, no pod lost with lead) and the three
+   gates must hold; the card's and the CPU's commands must be equal;
+   the absorb probe must dispatch on the card; the leg's solver calls,
+   per-solve wall and compat launches (2 + Gp per solve step and probe
+   chunk) are recorded; the last absorb row is re-run on the CPU and its
+   G×T and 1×(Np·Bp) products join the compat cases. The storm's fleet
+   is full, so its absorb rows answer False; a two-node fleet with room
+   to spare (``absorb_slack``) then takes a notice on the card and on the
+   CPU: its one absorb row must answer True and ship the delete-only
+   drain with no replacement, every pod still bound, equal on both.
 
 Prints one ``{"kernels": [...]}`` line, one ``{"solve": ...}`` line, one
 ``{"live_round": ...}`` line, one ``{"consolidation": ...}`` line, one
-``{"operator": ...}`` line, the card line, and as its last line
+``{"operator": ...}`` line, one ``{"admission": ...}`` line, one
+``{"spot": ...}`` line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``. Any
 failure raises and exits non-zero; so does a machine without CUDA.
 """
@@ -1224,6 +1260,691 @@ def operator_phase(cuda_kernels, kernels) -> tuple:
     return line, launches, cases
 
 
+# the admission grid and the spot storm (perf/run.py run_priority and
+# run_spot), with the decisions the JAX package reaches on them
+PRIORITY_EXPECT = dict(tiers=3, solve_dispatches=1, fused_runs=1,
+                       scheduled=5000)
+GANG_EXPECT = dict(tiers=2, solve_dispatches=21, gangs_placed=19,
+                   gangs_routed=1, partial=0)
+PREEMPT_NODES = 8
+PREEMPT_EXPECT = dict(hi_bound=8, confirmed=8, declined=0, evictions=16)
+# the storm's fleet is cut from perf/run.py's 1,000 nodes: a G=1 solve on
+# the card costs ~0.1-0.2 s and the storm's solver calls grow with the
+# fleet (1,244 at 100 nodes), so 1,000 nodes would outlast the run
+SPOT_NODES, SPOT_NODES_FULL = 100, 1000
+SPOT_STORM = dict(rounds=10, rate=0.25, step=30.0, seed=7, shift=1.25)
+SPOT_EXPECT = {
+    "risk_aware": dict(lam=2.0, notices=11, creates=10, proactive_drains=9,
+                       deadline_degradations=2, end_nodes=100,
+                       pods_bound=300, end_cost=38.0, pods_lost_with_lead=0),
+    "risk_blind": dict(lam=0.0, notices=190, creates=188,
+                       proactive_drains=188, deadline_degradations=2,
+                       end_nodes=100, pods_bound=300, end_cost=40.994563,
+                       pods_lost_with_lead=0),
+}
+
+
+class PathRecorder:
+    """Counts what a run sends to the device: each ``solve_step`` (its
+    Gp), each probe dispatch (its rows, chunks and Gp), the wall time of
+    each ``TorchSolver.solve``, and the last dispatch of each kind. The
+    compat launches such a run must show are ``2 + Gp`` per solve step
+    and per probe chunk."""
+
+    def __init__(self, kernels, cons):
+        from karpenter_tpu_torch.models import TorchSolver
+
+        self.kernels, self.cons = kernels, cons
+        self.TorchSolver = TorchSolver
+        self.real = dict(step=kernels.solve_step,
+                         dispatch=cons.dispatch_counterfactual_rows,
+                         solve=TorchSolver.solve)
+        self.reset()
+
+    def reset(self):
+        self.steps = self.step_gp = 0
+        self.probes = self.probe_rows = self.probe_chunks = 0
+        self.probe_gp = 0
+        self.solves = 0
+        self.solve_ms: list = []
+        self.last: dict = {}
+        self.tag = ""
+        self.tagged: dict = {}
+
+    def expected_compat(self) -> int:
+        return (2 * (self.steps + self.probe_chunks) + self.step_gp
+                + self.probe_gp)
+
+    def __enter__(self):
+        rec, real = self, self.real
+
+        def step(args, **kw):
+            rec.steps += 1
+            rec.step_gp += int(args["g_demand"].shape[0])
+            rec.last["step"] = (args, kw)
+            return real["step"](args, **kw)
+
+        def dispatch(shared, Gp, Ep, e_avail, max_minv, g_count_k,
+                     e_zero_cols, e_free=None, max_bins=1):
+            out = real["dispatch"](shared, Gp, Ep, e_avail, max_minv,
+                                   g_count_k, e_zero_cols, e_free=e_free,
+                                   max_bins=max_bins)
+            rows = g_count_k.shape[0]
+            chunks = -(-rows // rec.cons.PROBE_CHUNK_ROWS)
+            rec.probes += 1
+            rec.probe_rows += rows
+            rec.probe_chunks += chunks
+            rec.probe_gp += chunks * Gp
+            rec.last["probe"] = dict(
+                args=(shared, Gp, Ep, e_avail, max_minv, g_count_k,
+                      e_zero_cols),
+                e_free=e_free, max_bins=max_bins, out=out)
+            if rec.tag:
+                rec.tagged.setdefault(rec.tag, []).append(rec.last["probe"])
+            return out
+
+        def solve(solver, *a, **kw):
+            t0 = time.perf_counter()
+            out = real["solve"](solver, *a, **kw)
+            rec.solves += 1
+            rec.solve_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        self.kernels.solve_step = step
+        self.cons.dispatch_counterfactual_rows = dispatch
+        self.TorchSolver.solve = solve
+        return self
+
+    def __exit__(self, *exc):
+        self.kernels.solve_step = self.real["step"]
+        self.cons.dispatch_counterfactual_rows = self.real["dispatch"]
+        self.TorchSolver.solve = self.real["solve"]
+
+
+def _round_inputs(pods, pools, catalog):
+    """``perf/run.py``'s ``_admission_inputs`` through the port: fresh
+    clones of the pods, the templates, the catalog by pool and a real
+    ``Topology`` over the pools' domains."""
+    from karpenter_tpu_torch.controllers.provisioning.provisioner import (
+        collect_domains,
+    )
+    from karpenter_tpu_torch.models import ClaimTemplate
+    from karpenter_tpu_torch.models.topology import Topology
+
+    templates = [ClaimTemplate(p) for p in pools]
+    its = {p.name: catalog for p in pools}
+    fresh = [p.clone() for p in pods]
+    domains: dict = {}
+    for t in templates:
+        collect_domains(domains, t, catalog)
+    return fresh, templates, its, Topology(domains=domains, pods=fresh)
+
+
+def _round_shape(res) -> tuple:
+    claims = sorted(
+        (c.template.nodepool_name, tuple(sorted(p.name for p in c.pods)),
+         tuple(sorted(it.name for it in c.instance_types)))
+        for c in res.new_claims if c.pods)
+    return claims, sorted(res.pod_errors)
+
+
+def admission_grid(device, kernels, cuda_kernels, cons, sizes=None) -> dict:
+    """priority-mix and gang-mix through ``AdmissionPlane.solve_round``
+    with ``TorchSolver(device)`` (None: the card), held against the
+    port's tiered-FFD oracle; then preempt-mix through the port's
+    ``Environment``. Each run with the launch counts zeroed just before
+    and read just after. ``sizes`` overrides the families' sizes (a CPU
+    rehearsal)."""
+    import torch
+
+    from karpenter_tpu_torch.admission import AdmissionPlane, preempt
+    from karpenter_tpu_torch.admission import tiered_ffd_oracle
+    from karpenter_tpu_torch.admission.priority import effective_priorities
+    from karpenter_tpu_torch.api import labels as wk
+    from karpenter_tpu_torch.models import TorchSolver
+    from karpenter_tpu_torch.operator import metrics as m
+    from karpenter_tpu_torch.workload import (
+        _pod,
+        gang_mix,
+        preempt_env,
+        priority_mix,
+    )
+
+    sizes = sizes or {}
+    sync = torch.cuda.synchronize if device is None else (lambda: None)
+    out: dict = {}
+    for name, build in (("priority_mix", priority_mix),
+                        ("gang_mix", gang_mix)):
+        pods, pools, catalog = build(**sizes.get(name, {}))
+        c_pods, tpl, its, topo = _round_inputs(pods, pools, catalog)
+        solver = TorchSolver(device)
+        with PathRecorder(kernels, cons) as rec:
+            cuda_kernels.reset_launches()
+            t0 = time.perf_counter()
+            res = AdmissionPlane().solve_round(solver, c_pods, tpl, its,
+                                               topology=topo)
+            sync()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            launches = dict(cuda_kernels.LAUNCHES)
+        o_pods, o_tpl, o_its, o_topo = _round_inputs(pods, pools, catalog)
+        t0 = time.perf_counter()
+        o_res, o_rep = tiered_ffd_oracle(o_pods, o_tpl, o_its,
+                                         topology=o_topo)
+        oracle_ms = (time.perf_counter() - t0) * 1e3
+        prio_of = effective_priorities(c_pods)
+        placed = {p.uid for c in res.new_claims for p in c.pods}
+        o_placed = {p.uid for c in o_res.new_claims for p in c.pods}
+        missed = sorted({prio_of[p.uid] for p in c_pods
+                         if p.uid not in placed and p.uid in o_placed},
+                        reverse=True)
+        tier_order_ok = not missed or not any(
+            prio_of[p.uid] < missed[0] for p in c_pods if p.uid in placed)
+        partial = 0
+        by_gang: dict = {}
+        for p in c_pods:
+            g = p.metadata.annotations.get(wk.POD_GROUP_ANNOTATION)
+            if g:
+                by_gang.setdefault(g, []).append(p)
+        for members in by_gang.values():
+            n_in = sum(1 for p in members if p.uid in placed)
+            partial += 0 < n_in < len(members)
+        nodes, o_nodes = len(res.new_claims), len(o_res.new_claims)
+        out[name] = dict(
+            pods=len(pods), types=len(catalog), wall_ms=wall_ms,
+            oracle_ms=oracle_ms, nodes=nodes, oracle_nodes=o_nodes,
+            node_overhead_pct=100.0 * (nodes - o_nodes) / max(o_nodes, 1),
+            scheduled=len(placed), oracle_scheduled=len(o_placed),
+            pod_errors=len(res.pod_errors), tier_order_ok=tier_order_ok,
+            partial=partial, oracle_gangs_placed=o_rep["gangs_placed"],
+            report=res.admission, solver_calls=rec.solves,
+            solve_ms=rec.solve_ms, steps=rec.steps,
+            compat_launches=launches["compat"],
+            compat_expected=rec.expected_compat(),
+            shape=_round_shape(res), last=rec.last.get("step"))
+
+    # ---- preempt-mix: the eviction ladder through the Environment ----
+    n_nodes = sizes.get("preempt_nodes", PREEMPT_NODES)
+    env = preempt_env(n_nodes, solver=TorchSolver(device))
+    start_bound = len([p for p in env.store.list("pods") if p.node_name])
+    reports, shipped, evicted = [], [], []
+    real_round = AdmissionPlane.solve_round
+    real_exec = preempt.execute_evictions
+    real_evict = env.store.evict
+
+    def solve_round(self, *a, **kw):
+        res = real_round(self, *a, **kw)
+        reports.append(dict(res.admission))
+        return res
+
+    def execute(store, candidate, preemptor, **kw):
+        got = real_exec(store, candidate, preemptor, **kw)
+        shipped.append((preemptor.metadata.name, len(candidate.victims),
+                        got))
+        return got
+
+    def evict(p):
+        evicted.append(p.metadata.owner_references[0]["name"])
+        return real_evict(p)
+
+    AdmissionPlane.solve_round = solve_round
+    preempt.execute_evictions = execute
+    env.store.evict = evict
+    try:
+        with PathRecorder(kernels, cons) as rec:
+            cuda_kernels.reset_launches()
+            t0 = time.perf_counter()
+            for i in range(n_nodes):
+                env.store.create("pods", _pod(f"hi{i}", 6.0, 4.0,
+                                              priority_class_name="high"))
+            env.run_until_idle(max_rounds=500)
+            sync()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            launches = dict(cuda_kernels.LAUNCHES)
+    finally:
+        AdmissionPlane.solve_round = real_round
+        preempt.execute_evictions = real_exec
+    ctr = env.registry.counter(m.ADMISSION_PREEMPTIONS)
+    probes = {k: sum(r["preempt_probes"][k] for r in reports)
+              for k in ("batch", "single", "errors")}
+    out["preempt_mix"] = dict(
+        nodes=n_nodes, wall_ms=wall_ms, start_bound=start_bound,
+        hi_bound=len([p for p in env.store.list("pods")
+                      if p.node_name and p.metadata.name.startswith("hi")]),
+        confirmed=int(ctr.value(outcome="confirmed")),
+        declined=int(ctr.value(outcome="declined")),
+        evictions=int(env.registry.counter(m.ADMISSION_EVICTIONS).total()),
+        evicted=sorted(evicted), shipped=shipped, rounds=len(reports),
+        probes=probes, probe_rows=rec.probe_rows,
+        probe_dispatches=rec.probes, solver_calls=rec.solves,
+        solve_ms=rec.solve_ms, compat_launches=launches["compat"],
+        compat_expected=rec.expected_compat(),
+        last_probe=rec.last.get("probe"))
+    return out
+
+
+def admission_phase(cuda_kernels, kernels) -> tuple:
+    """The admission plane on the card and on the CPU plain path:
+    ``(line, launches, cases)``."""
+    from karpenter_tpu_torch.ops import consolidate as cons
+
+    t0 = time.perf_counter()
+    card = admission_grid(None, kernels, cuda_kernels, cons)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = admission_grid("cpu", kernels, cuda_kernels, cons)
+    cpu_s = time.perf_counter() - t0
+
+    for name, want in (("priority_mix", PRIORITY_EXPECT),
+                       ("gang_mix", GANG_EXPECT)):
+        got = card[name]
+        rep = got["report"]
+        seen = dict(tiers=rep["tiers"],
+                    solve_dispatches=rep["solve_dispatches"],
+                    fused_runs=rep["fused_runs"],
+                    scheduled=got["scheduled"],
+                    gangs_placed=rep["gangs_placed"],
+                    gangs_routed=rep["gangs_routed"],
+                    partial=got["partial"])
+        check(all(seen[k] == v for k, v in want.items()),
+              f"admission {name}: {seen}, want {want}")
+        check(got["tier_order_ok"], f"admission {name}: tier order broken")
+        check(got["node_overhead_pct"] <= 2.0,
+              f"admission {name}: {got['nodes']} nodes against the "
+              f"oracle's {got['oracle_nodes']}")
+        # a solve re-runs its step when its bins run dry
+        check(rep["solve_dispatches"] == got["solver_calls"]
+              <= got["steps"],
+              f"admission {name}: {got['solver_calls']} solves, "
+              f"{got['steps']} solve steps, report "
+              f"{rep['solve_dispatches']}")
+        check(got["compat_launches"] > 0
+              and got["compat_launches"] == got["compat_expected"],
+              f"admission {name}: compat launches "
+              f"{got['compat_launches']} != 2 + Gp per solve step "
+              f"({got['compat_expected']})")
+        check(got["shape"] == cpu[name]["shape"],
+              f"admission {name}: the card and the CPU plain path give "
+              "different claims or errors")
+        check(rep == cpu[name]["report"],
+              f"admission {name}: reports differ, card {rep}, "
+              f"cpu {cpu[name]['report']}")
+    pm = card["preempt_mix"]
+    seen = {k: pm[k] for k in PREEMPT_EXPECT}
+    check(seen == PREEMPT_EXPECT,
+          f"admission preempt_mix: {seen}, want {PREEMPT_EXPECT}")
+    # confirm-before-execute: every eviction shipped from a confirmed,
+    # complete victim set
+    check(len(pm["shipped"]) == pm["confirmed"]
+          and sum(ev for _, _, (ev, _) in pm["shipped"]) == pm["evictions"]
+          and all(ok for _, _, (_, ok) in pm["shipped"]),
+          f"admission preempt_mix: evictions outside confirmed verdicts "
+          f"{pm['shipped']}")
+    check(pm["probes"]["batch"] + pm["probes"]["single"] > 0
+          and pm["probes"]["errors"] == 0,
+          f"admission preempt_mix: probes {pm['probes']}")
+    check(pm["compat_launches"] > 0
+          and pm["compat_launches"] == pm["compat_expected"],
+          f"admission preempt_mix: compat launches {pm['compat_launches']} "
+          f"!= 2 + Gp per solve step and probe chunk "
+          f"({pm['compat_expected']})")
+    check({k: pm[k] for k in ("hi_bound", "confirmed", "declined",
+                              "evictions", "evicted")}
+          == {k: cpu["preempt_mix"][k] for k in (
+              "hi_bound", "confirmed", "declined", "evictions", "evicted")},
+          "admission preempt_mix: the card and the CPU plain path evict "
+          "differently")
+
+    # each family's last dispatch again, on the card and on the CPU
+    cases, bit_equal, traces = [], {}, {}
+    for name, label in (("priority_mix", "fused"), ("gang_mix", "gang")):
+        args_gpu, step_kw = card[name]["last"]
+        gpu_ms, cpu_ms = check_dispatch(args_gpu, step_kw, kernels,
+                                        f"admission {name}")
+        bit_equal[name] = dict(gpu_ms=gpu_ms, cpu_ms=cpu_ms,
+                               Gp=int(args_gpu["g_demand"].shape[0]),
+                               Bp=step_kw["max_bins"])
+        cases.append((f"{label} GxT", [args_gpu[k] for k in (
+            "g_mask", "g_has", "g_tol", "t_mask", "t_has", "t_tol")]))
+        if name == "priority_mix":
+            cases.append(("fused 1xB", bins_case(
+                args_gpu, int(args_gpu["g_demand"].shape[0]),
+                step_kw["max_bins"], kernels)))
+            traces["fused_dispatch"] = device_times(
+                lambda: kernels.solve_step(args_gpu, **step_kw), 1)
+    probe = pm["last_probe"]
+    shared, Gp, Ep, e_avail, mm, gk, cols = probe["args"]
+    want = cons.dispatch_counterfactual_rows(
+        {k: v.cpu() for k, v in shared.items()}, Gp, Ep, e_avail, mm, gk,
+        cols, e_free=probe["e_free"], max_bins=probe["max_bins"])
+    for a, b in zip(probe["out"], want):
+        check(a.shape == b.shape and np.array_equal(a, b),
+              "admission preempt_mix: the last probe differs on the CPU")
+    Np = cons._pow2(int(gk.shape[0]), lo=4)
+    cases += [("preempt GxT", [shared[k] for k in (
+                  "g_mask", "g_has", "g_tol", "t_mask", "t_has", "t_tol")]),
+              ("preempt 1xNpB", bins_case(shared, Gp, Np * probe["max_bins"],
+                                          kernels))]
+
+    def summary(rec, keys):
+        return {k: rec[k] for k in keys}
+
+    grid_keys = ("pods", "types", "wall_ms", "oracle_ms", "nodes",
+                 "oracle_nodes", "node_overhead_pct", "scheduled",
+                 "oracle_scheduled", "pod_errors", "tier_order_ok",
+                 "partial", "oracle_gangs_placed", "report", "solver_calls",
+                 "solve_ms", "compat_launches")
+    pm_keys = ("nodes", "wall_ms", "start_bound", "hi_bound", "confirmed",
+               "declined", "evictions", "rounds", "probes", "probe_rows",
+               "probe_dispatches", "solver_calls", "solve_ms",
+               "compat_launches")
+    line = {"admission": {
+        "card": {n: summary(card[n], grid_keys)
+                 for n in ("priority_mix", "gang_mix")}
+        | {"preempt_mix": summary(pm, pm_keys)},
+        "cpu": {n: summary(cpu[n], ("wall_ms", "nodes", "solver_calls"))
+                for n in ("priority_mix", "gang_mix")}
+        | {"preempt_mix": summary(cpu["preempt_mix"], (
+            "wall_ms", "evictions", "solver_calls"))},
+        "card_s": card_s, "cpu_s": cpu_s,
+        "last_dispatch": bit_equal,
+        "last_probe": {"rows": int(gk.shape[0]), "Gp": Gp, "Ep": Ep},
+        "traces": traces,
+    }}
+    launches = {"compat": sum(card[n]["compat_launches"] for n in (
+        "priority_mix", "gang_mix", "preempt_mix"))}
+    return line, launches, cases
+
+
+def spot_leg(device, kernels, cuda_kernels, cons, lam, n_nodes) -> dict:
+    """One leg of the storm (``workload.spot_storm``) with
+    ``TorchSolver(device)`` (None: the card): the command log, the
+    counts, the solver calls with their wall times, the absorb probe's
+    dispatches and answers, and the compat launches, zeroed once the
+    fleet stands and read after the storm."""
+    import torch
+
+    from karpenter_tpu_torch.models import TorchSolver
+    from karpenter_tpu_torch.workload import spot_storm
+
+    on_card = device is None
+    commands: list = []
+    absorbed: list = []
+    ordinal: dict = {}
+    with PathRecorder(kernels, cons) as rec:
+        built = {}
+
+        def on_env(env):
+            built["s"] = time.perf_counter() - built.pop("t0")
+            built["provision_solves"] = rec.solves
+            real_execute = env.disruption._execute
+            drain = next(mt for mt in env.disruption.methods
+                         if type(mt).__name__ == "InterruptionDrain")
+            real_absorb = drain._absorb_probe
+
+            def absorb(cands):
+                rec.tag = "absorb"
+                try:
+                    answer = real_absorb(cands)
+                finally:
+                    rec.tag = ""
+                absorbed.append(answer)
+                return answer
+
+            def execute(cmd, method=None):
+                for name in sorted((nc.name for nc in env.store.list(
+                        "nodeclaims") if nc.name not in ordinal),
+                        key=lambda s: int(s.rsplit("-", 1)[-1])):
+                    ordinal[name] = len(ordinal)
+                rung = getattr(method, "last_probe", "")
+                if getattr(method, "last_rung", ""):
+                    rung = f"{method.last_rung}/{method.last_reason}"
+                commands.append((
+                    type(method).__name__, rung, cmd.action,
+                    [ordinal.get(c.name, -1) for c in cmd.candidates],
+                    [sorted(it.name for it in claim.instance_types)
+                     for claim in cmd.replacements]))
+                return real_execute(cmd, method)
+
+            drain._absorb_probe = absorb
+            env.disruption._execute = execute
+            rec.reset()
+            cuda_kernels.reset_launches()
+            built["t_storm"] = time.perf_counter()
+
+        built["t0"] = time.perf_counter()
+        leg = spot_storm(n_nodes, lam=lam, solver=TorchSolver(device),
+                         on_env=on_env, **SPOT_STORM)
+        if on_card:
+            torch.cuda.synchronize()
+        storm_s = time.perf_counter() - built["t_storm"]
+        launches = dict(cuda_kernels.LAUNCHES)
+    env = leg.pop("env")
+    check(env.provisioner.solver.device.type
+          == ("cuda" if on_card else "cpu"), "spot: solver device")
+    ms = sorted(rec.solve_ms)
+    leg.update(
+        build_s=built["s"], storm_s=storm_s, commands=commands,
+        solver_calls=rec.solves,
+        solve_ms_total=sum(ms),
+        solve_ms_median=ms[len(ms) // 2] if ms else None,
+        solve_ms_p90=ms[int(0.9 * (len(ms) - 1))] if ms else None,
+        solve_steps=rec.steps, probe_dispatches=rec.probes,
+        probe_rows=rec.probe_rows,
+        absorb_probes=len(absorbed),
+        absorb_answers={str(k): absorbed.count(k)
+                        for k in (True, False, None)},
+        absorb_dispatches=len(rec.tagged.get("absorb", [])),
+        last_absorb=(rec.tagged.get("absorb") or [None])[-1],
+        compat_launches=launches["compat"],
+        compat_expected=rec.expected_compat())
+    del env
+    return leg
+
+
+def absorb_slack(device, kernels, cuda_kernels, cons) -> dict:
+    """The absorb probe's deciding answer: two 16-cpu nodes left with
+    room to spare (six 5-cpu replicas scaled down to three, voluntary
+    disruption closed by a zero budget) and a notice with lead on the
+    emptier one. The survivor absorbs its pod, so the row answers True
+    and the delete-only drain ships without the host simulation. Returns
+    the answers, the commands, the end state, the absorb dispatches and
+    the compat launches of the notice's rounds."""
+    import random
+
+    import torch
+
+    from karpenter_tpu_torch.api.objects import Deployment, ObjectMeta
+    from karpenter_tpu_torch.cloudprovider.catalog import make_instance_type
+    from karpenter_tpu_torch.cloudprovider.chaos import ChaosCloud
+    from karpenter_tpu_torch.models import TorchSolver
+    from karpenter_tpu_torch.operator import Environment
+    from karpenter_tpu_torch.workload import _pod, _pool
+
+    env = Environment(instance_types=[make_instance_type("xl", 16, 64)],
+                      solver=TorchSolver(device), enable_disruption=True)
+    pool = _pool()
+    pool.spec.disruption.consolidate_after = 0.0
+    env.create("nodepools", pool)
+    for i in range(3):
+        env.store.create("deployments", Deployment(
+            metadata=ObjectMeta(name=f"d{i}"), replicas=2,
+            template=_pod(f"d{i}-tpl", 5.0, 10.0)))
+    env.run_until_idle(max_rounds=300)
+    pool = env.store.list("nodepools")[0]
+    pool.spec.disruption.budgets[0].nodes = "0"
+    env.store.update("nodepools", pool)
+    for name, replicas in (("d0", 0), ("d1", 1)):
+        d = env.store.get("deployments", name)
+        d.replicas = replicas
+        env.store.update("deployments", d)
+    env.run_until_idle(max_rounds=300)
+    drain = next(mt for mt in env.disruption.methods
+                 if type(mt).__name__ == "InterruptionDrain")
+    real_absorb = drain._absorb_probe
+    answers, commands = [], []
+    real_execute = env.disruption._execute
+
+    def execute(cmd, method=None):
+        commands.append((type(method).__name__,
+                         f"{method.last_rung}/{method.last_reason}",
+                         cmd.action, len(cmd.candidates),
+                         len(cmd.replacements)))
+        return real_execute(cmd, method)
+
+    bound: dict = {}
+    for p in env.store.list("pods"):
+        if p.node_name:
+            bound[p.node_name] = bound.get(p.node_name, 0) + 1
+    emptiest = min(env.store.list("nodes"),
+                   key=lambda n: (bound.get(n.metadata.name, 0),
+                                  n.metadata.name))
+    with PathRecorder(kernels, cons) as rec:
+        def absorb(cands):
+            rec.tag = "absorb"
+            try:
+                answer = real_absorb(cands)
+            finally:
+                rec.tag = ""
+            answers.append(answer)
+            return answer
+
+        drain._absorb_probe = absorb
+        env.disruption._execute = execute
+        cuda_kernels.reset_launches()
+        chaos = ChaosCloud(random.Random(13)).arm(env)
+        chaos.inject_notice(emptiest.provider_id, env.clock.now() + 300.0)
+        env.run_until_idle(max_rounds=400)
+        if device is None:
+            torch.cuda.synchronize()
+        launches = dict(cuda_kernels.LAUNCHES)
+    pods = [p for p in env.store.list("pods")
+            if p.metadata.deletion_timestamp is None]
+    return dict(
+        answers=answers, commands=commands,
+        nodes=len(env.store.list("nodes")),
+        bound=sum(1 for p in pods if p.node_name),
+        unbound=sum(1 for p in pods if not p.node_name),
+        absorb_dispatches=len(rec.tagged.get("absorb", [])),
+        compat_launches=launches["compat"],
+        compat_expected=rec.expected_compat())
+
+
+def spot_phase(cuda_kernels, kernels) -> tuple:
+    """The storm on the card (both legs) and its risk-aware leg on the CPU
+    plain path: ``(line, launches, cases)``."""
+    from karpenter_tpu_torch.ops import consolidate as cons
+    from karpenter_tpu_torch.workload import spot_gates
+
+    import os
+
+    legs, seconds = {}, {}
+    knob = os.environ.get("KARPENTER_RELAX")
+    # the relax rung's default on the card (on) for both paths, so the
+    # CPU plain path takes the same rungs
+    os.environ["KARPENTER_RELAX"] = "1"
+    try:
+        for name, want in SPOT_EXPECT.items():
+            t0 = time.perf_counter()
+            legs[name] = spot_leg(None, kernels, cuda_kernels, cons,
+                                  want["lam"], SPOT_NODES)
+            seconds[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = spot_leg("cpu", kernels, cuda_kernels, cons,
+                       SPOT_EXPECT["risk_aware"]["lam"], SPOT_NODES)
+        seconds["risk_aware_cpu"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        slack = {"card": absorb_slack(None, kernels, cuda_kernels, cons),
+                 "cpu": absorb_slack("cpu", kernels, cuda_kernels, cons)}
+        seconds["absorb_slack"] = time.perf_counter() - t0
+    finally:
+        if knob is None:
+            os.environ.pop("KARPENTER_RELAX", None)
+        else:
+            os.environ["KARPENTER_RELAX"] = knob
+
+    for name, want in SPOT_EXPECT.items():
+        got = legs[name]
+        seen = {k: got[k] for k in want if k != "lam"}
+        check(seen == {k: v for k, v in want.items() if k != "lam"},
+              f"spot {name}: {seen}, want {want}")
+        check(got["compat_launches"] > 0
+              and got["compat_launches"] == got["compat_expected"],
+              f"spot {name}: compat launches {got['compat_launches']} != "
+              f"2 + Gp per solve step and probe chunk "
+              f"({got['compat_expected']})")
+    aware, blind = legs["risk_aware"], legs["risk_blind"]
+    check(aware["absorb_dispatches"] + blind["absorb_dispatches"] > 0,
+          "spot: the absorb probe never dispatched on the card")
+    diff = next((i for i, (a, b) in enumerate(zip(aware["commands"],
+                                                  cpu["commands"]))
+                 if a != b), min(len(aware["commands"]),
+                                 len(cpu["commands"])))
+    check(aware["commands"] == cpu["commands"],
+          f"spot: the risk-aware leg's commands differ on the card and on "
+          f"the CPU plain path from command {diff}: "
+          f"{aware['commands'][diff:diff + 2]} against "
+          f"{cpu['commands'][diff:diff + 2]}")
+    check({k: aware[k] for k in SPOT_EXPECT["risk_aware"] if k != "lam"}
+          == {k: cpu[k] for k in SPOT_EXPECT["risk_aware"] if k != "lam"},
+          "spot: the risk-aware leg ends differently on the CPU")
+    gates = spot_gates(aware, blind, SPOT_NODES)
+    check(gates["cost_beats_blind"] and gates["churn_bound_ok"]
+          and gates["zero_late_drain_ok"], f"spot gates: {gates}")
+    # the absorb row's True answer ships the delete-only drain
+    on_card = slack["card"]
+    check(on_card["answers"] == [True] and on_card["commands"] == [
+              ("InterruptionDrain", "proactive/delete-only", "delete", 1, 0)]
+          and on_card["unbound"] == 0 and on_card["bound"] == 3,
+          f"spot: the slack fleet's absorb probe on the card: {on_card}")
+    check(on_card["absorb_dispatches"] == 1
+          and on_card["compat_launches"] == on_card["compat_expected"],
+          f"spot: the slack fleet's absorb row did not run on the card "
+          f"as counted: {on_card}")
+    check({k: v for k, v in on_card.items() if not k.startswith("compat")}
+          == {k: v for k, v in slack["cpu"].items()
+              if not k.startswith("compat")},
+          f"spot: the slack fleet differs on the card and on the CPU: "
+          f"{slack}")
+
+    # the last absorb row, again on the CPU, and its compat products
+    probe = aware["last_absorb"] or blind["last_absorb"]
+    shared, Gp, Ep, e_avail, mm, gk, cols = probe["args"]
+    want = cons.dispatch_counterfactual_rows(
+        {k: v.cpu() for k, v in shared.items()}, Gp, Ep, e_avail, mm, gk,
+        cols, max_bins=probe["max_bins"])
+    for a, b in zip(probe["out"], want):
+        check(a.shape == b.shape and np.array_equal(a, b),
+              "spot: the last absorb row differs on the CPU")
+    Np = cons._pow2(int(gk.shape[0]), lo=4)
+    cases = [("absorb GxT", [shared[k] for k in (
+                 "g_mask", "g_has", "g_tol", "t_mask", "t_has", "t_tol")]),
+             ("absorb 1xNpB", bins_case(shared, Gp, Np * probe["max_bins"],
+                                        kernels))]
+    drop = ("commands", "last_absorb")
+
+    def brief(leg):
+        return {k: v for k, v in leg.items() if k not in drop} | {
+            "n_commands": len(leg["commands"]),
+            "methods": sorted({c[0] for c in leg["commands"]})}
+
+    line = {"spot": {
+        "nodes": SPOT_NODES, **SPOT_STORM,
+        "reduced": {"nodes": f"{SPOT_NODES_FULL} -> {SPOT_NODES}",
+                    "why": "a G=1 solve on the card takes ~0.1-0.2 s and "
+                           "the storm's solver calls grow with the fleet "
+                           "(1,244 at 100 nodes); 1,000 nodes would "
+                           "outlast the run's time limit"},
+        "risk_aware": brief(aware), "risk_blind": brief(blind),
+        "risk_aware_cpu": brief(cpu), "absorb_slack": slack,
+        "gates": gates, "seconds": seconds,
+        "last_absorb": {"rows": int(gk.shape[0]), "Gp": Gp, "Ep": Ep},
+    }}
+    launches = {"compat": aware["compat_launches"]
+                + blind["compat_launches"]
+                + slack["card"]["compat_launches"]}
+    return line, launches, cases
+
+
 def main() -> int:
     import torch
 
@@ -1339,6 +2060,17 @@ def main() -> int:
     op_line, op_launches, op_cases = operator_phase(cuda_kernels, kernels)
     op_line["operator"]["phase_s"] = time.perf_counter() - t0
 
+    # ---- the fifth main path: the admission plane ----
+    t0 = time.perf_counter()
+    adm_line, adm_launches, adm_cases = admission_phase(cuda_kernels,
+                                                        kernels)
+    adm_line["admission"]["phase_s"] = time.perf_counter() - t0
+
+    # ---- the sixth main path: the spot storm's interruption path ----
+    t0 = time.perf_counter()
+    spot_line, spot_launches, spot_cases = spot_phase(cuda_kernels, kernels)
+    spot_line["spot"]["phase_s"] = time.perf_counter() - t0
+
     # ---- every kernel against its plain version, on the card ----
     _, K, W = args_gpu["g_mask"].shape
     gt_in = [args_gpu[k] for k in ("g_mask", "g_has", "g_tol",
@@ -1347,7 +2079,7 @@ def main() -> int:
     rng = np.random.default_rng(0)
     timed = [("main GxT", gt_in), ("main GxM", gm_in),
              ("main 1xB", bins_case(args_gpu, snap.G, Bp, kernels)),
-             *live_cases, *cons_cases, *op_cases,
+             *live_cases, *cons_cases, *op_cases, *adm_cases, *spot_cases,
              ("scale " + "x".join(map(str, SCALE_SHAPE)),
               compat_case(rng, *SCALE_SHAPE, dev))]
     cases = timed + [("x".join(map(str, shape)), compat_case(rng, *shape, dev))
@@ -1380,11 +2112,14 @@ def main() -> int:
         "source": "karpenter_tpu_torch/csrc/compat.cu",
         "replaces": "karpenter_tpu/ops/pallas_kernels.py:62",
         "launches": (launches["compat"] + live_launches["compat"]
-                     + cons_launches["compat"] + op_launches["compat"]),
+                     + cons_launches["compat"] + op_launches["compat"]
+                     + adm_launches["compat"] + spot_launches["compat"]),
         "launches_by_path": {"headline": launches["compat"],
                              "live_round": live_launches["compat"],
                              "consolidation": cons_launches["compat"],
-                             "operator": op_launches["compat"]},
+                             "operator": op_launches["compat"],
+                             "admission": adm_launches["compat"],
+                             "spot": spot_launches["compat"]},
         "max_abs_err": 0 if mismatches == 0 else 1,
         "tolerance": "exact (one bool per cell)",
         "mismatches": mismatches,
@@ -1427,6 +2162,8 @@ def main() -> int:
     print(json.dumps(live_line))
     print(json.dumps(cons_line))
     print(json.dumps(op_line))
+    print(json.dumps(adm_line))
+    print(json.dumps(spot_line))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

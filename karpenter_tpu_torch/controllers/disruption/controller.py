@@ -11,12 +11,13 @@ blocking TTL wait as a pending-command slot re-checked on later polls.
 
 The port's copy of ``karpenter_tpu/controllers/disruption/controller.py``
 (imports changed; ``TorchSolver`` where the JAX package tests for
-``TPUSolver``). Left out: ``InterruptionDrain`` and
-``_pull_interruption_notices`` (a cloud provider that raises notices,
-ROADMAP.md Queue 1 item 14), ``_observe_fleet_cost`` and the command's
-fleet-ledger entry (``obs.timeline``, item 9), and the flight-recorder
+``TPUSolver``). ``InterruptionDrain`` runs first in the ring and the
+cloud provider's interruption notices are pulled on every poll. Left out:
+``_observe_fleet_cost`` and the command's fleet-ledger entry
+(``obs.timeline``, ROADMAP.md Queue 1 item 2), and the flight-recorder
 spans. A snapshot prewarm that hits a device fault propagates, as the
-probes do (``methods._DEVICE_FAULTS``).
+probes do (``ops.cuda_kernels.DEVICE_FAULTS``); any other failure falls back and
+is counted in ``DISRUPTION_PROBE_FAILURES`` (method ``prewarm``).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from karpenter_tpu_torch.controllers.disruption.methods import (
     Emptiness,
     EmptyNodeConsolidation,
     GlobalConsolidation,
+    InterruptionDrain,
     MultiNodeConsolidation,
     SingleNodeConsolidation,
 )
@@ -57,6 +59,8 @@ class DisruptionContext:
         self.clock = clock
         self.options = options or {}
         self.registry = registry or _m.REGISTRY
+        # the cloud provider seam: InterruptionDrain rebuilds candidates
+        # for noticed nodes the voluntary-disruption filters excluded
         self.cloud = cloud
         # one tensorization per cluster-state generation, shared by every
         # consolidation probe and confirming simulation in a round
@@ -108,6 +112,10 @@ class DisruptionController:
         )
         self.queue = OrchestrationQueue(store, cluster, self.clock, recorder)
         self.methods = [
+            # interruption FIRST: a reclaim deadline outranks every
+            # voluntary method — the node is leaving whether we act or
+            # not, and acting early is the whole resilience story
+            InterruptionDrain(self.ctx),
             Drift(self.ctx),
             Emptiness(self.ctx),
             EmptyNodeConsolidation(self.ctx),
@@ -140,6 +148,10 @@ class DisruptionController:
 
     def poll(self) -> bool:
         progressed = self.queue.poll()
+        # interruption notices are pulled on EVERY poll (not only on the
+        # 10 s round cadence): a two-minute warning must reach cluster
+        # state the moment it exists — the pull is one drained list
+        self._pull_interruption_notices()
         now = self.clock.now()
         if now - self._last_run < self.poll_period:
             return progressed
@@ -151,6 +163,45 @@ class DisruptionController:
         if self._pending is not None:
             return self._handle_pending() or progressed
         return self._compute_round() or progressed
+
+    # -- interruption notices (spot resilience) --------------------------
+    def _pull_interruption_notices(self):
+        """Drain the cloud provider's interruption feed onto cluster
+        state: each notice marks its StateNode with the reclaim deadline
+        (``Cluster.note_interruption`` — a node-scoped journal entry, so
+        the cached disruption snapshot delta-advances), lands a store
+        event through the recorder, and counts on
+        ``karpenter_interruption_notices_total{outcome}``."""
+        from karpenter_tpu_torch.operator import metrics as m
+
+        fn = getattr(self.cloud, "interruption_notices", None)
+        if fn is None:
+            return
+        try:
+            notices = fn()
+        except Exception:
+            import logging
+
+            logging.getLogger(__name__).warning(
+                "interruption-notice pull failed; retrying next poll",
+                exc_info=True)
+            return
+        if not notices:
+            return
+        counter = self.registry.counter(
+            m.INTERRUPTION_NOTICES,
+            "spot interruption notices pulled from the cloud provider")
+        for n in notices:
+            marked = self.cluster.note_interruption(n.provider_id,
+                                                    n.deadline)
+            counter.inc(outcome="marked" if marked else "unknown-node")
+            if marked and self.recorder is not None:
+                sn = self.cluster.node_for(n.provider_id)
+                self.recorder.publish(
+                    "SpotInterruptionNotice",
+                    f"capacity behind {sn.name if sn else n.provider_id} "
+                    f"will be reclaimed at {n.deadline:.0f}",
+                )
 
     # -- watchdog (logAbnormalRuns, controller.go:274-283) ---------------
     def _log_abnormal_run(self, now: float):
@@ -212,7 +263,10 @@ class DisruptionController:
         for pool, by_reason in budgets.items():
             for reason, allowed in by_reason.items():
                 bg.set(allowed, nodepool=pool, reason=reason)
-        if not candidates:
+        if not candidates and not self.cluster.interruptions_pending():
+            # noticed nodes must reach InterruptionDrain even when every
+            # node fails the VOLUNTARY-disruption filters (do-not-disrupt,
+            # PDB) — the reclaim doesn't care about those
             return False
         fence = self.cluster.consolidation_state()
         bundle_warmed = False
@@ -253,16 +307,17 @@ class DisruptionController:
         confirming simulation of the round, so its cost is round
         orchestration, reported as ``GLOBAL_STATS["bundle_ms"]``. A failed
         build is not fatal: methods re-attempt on demand and fall back to
-        their sequential rungs as before — unless it is a device fault,
-        which propagates."""
+        their sequential rungs as before, and the failure is counted —
+        unless it is a device fault, which propagates."""
         import time as _time
 
         from karpenter_tpu_torch.controllers.disruption.methods import (
-            _DEVICE_FAULTS,
             _consolidatable,
+            _probe_failure,
         )
         from karpenter_tpu_torch.models.solver import TorchSolver
         from karpenter_tpu_torch.ops import consolidate as cons
+        from karpenter_tpu_torch.ops.cuda_kernels import DEVICE_FAULTS
 
         if not isinstance(getattr(self.provisioner, "solver", None),
                           TorchSolver):
@@ -275,11 +330,12 @@ class DisruptionController:
             self.ctx.snapshot_cache.get(
                 self.provisioner, self.cluster, self.store, pool,
                 registry=self.registry)
-        except _DEVICE_FAULTS:
+        except DEVICE_FAULTS:
             raise
         except Exception:
             import logging
 
+            _probe_failure(self.ctx, "prewarm")
             logging.getLogger(__name__).warning(
                 "snapshot prewarm failed; methods build on demand",
                 exc_info=True)

@@ -11,15 +11,18 @@ and ≥15 cheaper types to prevent churn).
 
 The port's copy of ``karpenter_tpu/controllers/disruption/methods.py``
 (imports changed; ``TorchSolver`` where the JAX package tests for
-``TPUSolver``). Left out: ``InterruptionDrain``, which waits on a cloud
-provider that raises interruption notices (ROADMAP.md Queue 1 item 14),
-and the flight-recorder spans, anomalies and decision-ledger verdicts
-(item 9) — each method keeps its rung and reason on itself instead
+``TPUSolver``). Left out: the flight-recorder spans, anomalies and
+decision-ledger verdicts, and the capsule seams (ROADMAP.md Queue 1 items
+2 and 3) — each method keeps its rung and reason on itself instead
 (``last_rung``/``last_reason``, ``last_probe``/``last_probe_reason``).
 
 A device probe's own inexpressible shapes fall back to the sequential
-search as in the JAX package; a kernel that does not build or launch, or
-a CUDA error, is not a probe failure and propagates (``_DEVICE_FAULTS``).
+search as in the JAX package, and so does any host-side exception, which
+is counted in ``DISRUPTION_PROBE_FAILURES``; a kernel that does not build
+or launch, or a CUDA error, is not a probe failure and propagates
+(``ops.cuda_kernels.DEVICE_FAULTS``; ``NotImplementedError`` and
+``RecursionError`` subclass ``RuntimeError`` but are host-side, and fall
+back).
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from karpenter_tpu_torch.api.nodepool import (
     CONSOLIDATION_WHEN_UNDERUTILIZED,
     REASON_DRIFTED,
     REASON_EMPTY,
+    REASON_INTERRUPTED,
     REASON_UNDERUTILIZED,
 )
 from karpenter_tpu_torch.controllers.disruption.helpers import (
@@ -38,6 +42,7 @@ from karpenter_tpu_torch.controllers.disruption.helpers import (
     within_budget,
 )
 from karpenter_tpu_torch.controllers.disruption.types import Command
+from karpenter_tpu_torch.ops.cuda_kernels import DEVICE_FAULTS
 
 MULTI_NODE_CANDIDATE_CAP = 100  # multinodeconsolidation.go:82
 SPOT_TO_SPOT_MIN_TYPES = 15  # consolidation.go:253-277
@@ -142,6 +147,219 @@ class Emptiness(Method):
         if not empty:
             return None
         return Command(empty, reason=self.reason)
+
+
+class InterruptionDrain(Method):
+    """Proactive spot drain-and-replace. An interruption notice marks the
+    node on cluster state (``Cluster.note_interruption``, pulled from the
+    cloud provider by the disruption controller); this method — ordered
+    before every consolidation method, because a reclaim deadline
+    outranks any voluntary optimization — ships ONE command per
+    notice-bearing round:
+
+    * **proactive** (the top rung): one counterfactual row on the round's
+      cached :class:`DisruptionSnapshot` (``bundle.dispatch``) asks
+      whether the SURVIVORS absorb every displaced pod, then the
+      confirming ``simulate_scheduling`` sizes the actual replacement
+      claims — and because ``needs_validation`` is False the command
+      executes this round: replacements launch immediately, the
+      orchestration queue holds the candidate-claim deletion until every
+      replacement is Initialized, and only then does the PDB-gated drain
+      wave ship. A notice with ≥1 round of lead therefore never loses a
+      pod to the reclaim.
+    * **degraded**: a deadline already inside
+      ``KARPENTER_INTERRUPTION_MIN_LEAD`` (30 s) — or one that arrives
+      MID-SOLVE (the simulation outran the clock) — degrades to an
+      immediate drain with no replacement wait.
+    * **reactive**: the replacement solve cannot place the pods (no
+      capacity); the node drains bare and the provisioner's
+      deleting-node pre-provisioning rescues what it can post-drain.
+
+    Interruption is INVOLUNTARY disruption: budgets are not consulted
+    and nodes the candidate filters exclude (do-not-disrupt,
+    PDB-blocked) are still drained — a blocked eviction retries until the
+    deadline kills the node. Each round leaves its verdict in
+    ``last_rung``/``last_reason``."""
+
+    reason = REASON_INTERRUPTED
+    needs_validation = False  # a validation TTL would eat the deadline
+    last_rung: str = ""  # "proactive" | "reactive" | "degraded"
+    # "ok", "delete-only", "reactive-fallback", "deadline-degraded"
+    last_reason: str = ""
+
+    @property
+    def uses_bundle(self) -> bool:
+        """Ask the controller to prewarm the round's snapshot ONLY when a
+        live notice exists: the absorb probe rides the bundle, but a
+        notice-free round must not pay a fleet tensorization for a method
+        that returns None immediately."""
+        cluster = getattr(self.ctx, "cluster", None)
+        return cluster is not None and cluster.interruptions_pending()
+
+    def _verdict(self, rung, reason="ok"):
+        self.last_rung = rung
+        self.last_reason = reason
+
+    def compute_command(self, candidates, budgets):
+        self.last_rung = self.last_reason = ""
+        noticed = self._noticed(candidates)
+        if not noticed:
+            return None
+        ctx = self.ctx
+        from karpenter_tpu_torch.operator import metrics as m
+        from karpenter_tpu_torch.utils.envknobs import env_float
+
+        min_lead = env_float("KARPENTER_INTERRUPTION_MIN_LEAD", 30.0,
+                             minimum=0.0)
+        # PARTITION by lead, never aggregate: one short-lead notice must
+        # not degrade nodes whose deadlines still leave room for the
+        # proactive replace — the urgent subset drains NOW and the
+        # with-lead rest rides the next poll, still inside its lead
+        urgent = [c for dl, c in noticed
+                  if ctx.clock.now() + min_lead > dl]
+        if urgent:
+            return self._degrade(urgent)
+        deadline = min(dl for dl, _ in noticed)
+        cands = [c for _, c in noticed]
+        absorbed = self._absorb_probe(cands)
+        if absorbed:
+            # the device row says the SURVIVORS absorb every displaced pod
+            # with zero fresh claims: ship the delete-only drain without
+            # paying the host simulation. The probe can only OVER-estimate
+            # (f32 fit): a wrong "absorbed" leaves pods pending post-drain
+            # and the provisioner re-provisions them next round
+            self._verdict("proactive", "delete-only")
+            ctx.registry.counter(
+                m.INTERRUPTION_PROACTIVE_DRAINS,
+                "interruption-noticed nodes drained proactively "
+                "(replacement launched-and-ready before the drain wave)",
+            ).inc(len(cands))
+            return Command(cands, reason=self.reason)
+        cache = getattr(ctx, "snapshot_cache", None)
+        bundle = (
+            cache.refresh(ctx.provisioner, ctx.cluster, ctx.store,
+                          registry=ctx.registry)
+            if cache is not None else None
+        )
+        inputs = cache.inputs_for(ctx.cluster) if cache is not None else None
+        sim = simulate_scheduling(
+            ctx.provisioner, ctx.cluster, ctx.store, cands,
+            inputs=inputs, bundle=bundle,
+        )
+        if ctx.clock.now() + min_lead > deadline:
+            # a deadline arrived mid-solve: degrade the now-urgent subset
+            # instead of wedging (the rest retries next poll)
+            urgent = [c for dl, c in noticed
+                      if ctx.clock.now() + min_lead > dl]
+            return self._degrade(urgent or cands)
+        if not sim.all_pods_scheduled():
+            self._verdict("reactive", "reactive-fallback")
+            return Command(cands, reason=self.reason)
+        self._verdict("proactive",
+                      "ok" if sim.new_claims else "delete-only")
+        ctx.registry.counter(
+            m.INTERRUPTION_PROACTIVE_DRAINS,
+            "interruption-noticed nodes drained proactively (replacement "
+            "launched-and-ready before the drain wave)",
+        ).inc(len(cands))
+        return Command(cands, replacements=sim.new_claims,
+                       reason=self.reason)
+
+    def _degrade(self, cands):
+        from karpenter_tpu_torch.operator import metrics as m
+
+        self._verdict("degraded", "deadline-degraded")
+        self.ctx.registry.counter(
+            m.INTERRUPTION_DEADLINE_DEGRADATIONS,
+            "interruption notices whose deadline forced the immediate-"
+            "drain degradation (no replacement wait)",
+        ).inc(len(cands))
+        return Command(cands, reason=self.reason)
+
+    def _noticed(self, candidates):
+        """[(deadline, Candidate)] for every live noticed node, soonest
+        first. Candidates the controller's filters excluded
+        (do-not-disrupt, PDB) are rebuilt directly — an interruption
+        ignores voluntary-disruption gates."""
+        ctx = self.ctx
+        if getattr(ctx, "cluster", None) is None:
+            return []
+        by_pid = {c.provider_id: c for c in candidates}
+        out = []
+        view = None
+        for sn in list(ctx.cluster.state_nodes()):
+            if not sn.interruption_pending():
+                continue
+            dl = sn.interruption_deadline
+            c = by_pid.get(sn.provider_id)
+            if c is None:
+                if view is None:
+                    from karpenter_tpu_torch.cloudprovider.types import (
+                        CatalogView,
+                    )
+
+                    view = CatalogView(ctx.store.list("nodepools"),
+                                       ctx.cloud)
+                c = self._make_candidate(sn, view)
+                if c is None:
+                    continue
+            out.append((dl, c))
+        out.sort(key=lambda t: t[0])
+        return out
+
+    def _make_candidate(self, sn, view):
+        from karpenter_tpu_torch.controllers.disruption.types import (
+            Candidate,
+        )
+
+        labels = sn.labels()
+        np_ = view.pool_of(labels)
+        if np_ is None:
+            return None
+        it = (view.instance_type(labels)
+              if getattr(self.ctx, "cloud", None) is not None else None)
+        return Candidate(sn.snapshot(), np_, it, self.ctx.clock)
+
+    def _absorb_probe(self, cands):
+        """One counterfactual row on the cached bundle's dispatch: do the
+        SURVIVING nodes absorb every noticed node's pods with zero fresh
+        claims? ``True`` short-circuits the host simulation (a delete-only
+        drain ships immediately); ``False``/``None`` hands the decision to
+        the simulation. None when the bundle cannot express the query,
+        and when the probe fails on the host — counted in
+        ``DISRUPTION_PROBE_FAILURES``, since a probe failure must never
+        block an interruption drain. A device fault propagates."""
+        import numpy as np
+
+        ctx = self.ctx
+        cache = getattr(ctx, "snapshot_cache", None)
+        bundle = cache.current(ctx.cluster) if cache is not None else None
+        if bundle is None:
+            return None
+        try:
+            cols = bundle.columns_for(cands)
+            if cols is None:
+                return None
+            contrib = bundle.contribs_for(cands, cols=cols)
+            if contrib is None:
+                return None
+            need = contrib.sum(axis=0)
+            row = (bundle.base + need)[None, :]
+            placed_g, used = bundle.dispatch(
+                row, [np.asarray(cols, dtype=np.intp)])
+            G = bundle.snap.G
+            return bool((placed_g[0, :G] >= need).all()
+                        and int(used[0]) == 0)
+        except DEVICE_FAULTS:
+            raise
+        except Exception:
+            import logging
+
+            _probe_failure(ctx, "interruption")
+            logging.getLogger(__name__).warning(
+                "interruption absorb probe failed; the confirming "
+                "simulation decides alone", exc_info=True)
+            return None
 
 
 def _consolidatable(candidates):
@@ -462,13 +680,6 @@ def _cross_capacity_anchor(c) -> float | None:
     return best
 
 
-# device and kernel faults are not probe failures: a compat kernel that
-# does not build or launch (ops/cuda_kernels.py raises RuntimeError), a
-# CUDA error (torch raises RuntimeError subclasses) or a kernel library
-# that does not load (OSError) propagates instead of falling back
-_DEVICE_FAULTS = (RuntimeError, OSError)
-
-
 def _probe_failure(ctx, method_label):
     """ONE copy of the probe-failure diagnosis, shared by the
     per-candidate probes and the global joint solve. Falling back is by
@@ -504,7 +715,7 @@ def _device_probe(ctx, probe_fn, method_label, cands, pool):
             # MultiNode's and SingleNode's probes share one tensorization
             build_candidates=pool,
         )
-    except _DEVICE_FAULTS:
+    except DEVICE_FAULTS:
         raise
     except Exception:
         import logging
@@ -665,7 +876,7 @@ class GlobalConsolidation(Method):
                 want_singles=(self._singles_armed
                               or len(cands) <= GLOBAL_SINGLES_MAX),
             )
-        except _DEVICE_FAULTS:
+        except DEVICE_FAULTS:
             raise
         except Exception:
             import logging

@@ -9,12 +9,12 @@ types (:363), then create NodeClaims and nominate the pods (:149-160).
 
 The port's copy of ``karpenter_tpu/controllers/provisioning/
 provisioner.py`` (imports changed). Its solver defaults to
-``TorchSolver()``, which runs on CUDA and raises without a card. Left
-out: the flight-recorder spans and anomalies (ROADMAP.md Queue 1 item 9)
-and the admission plane (item 16) — a live batch carrying an admission
-marker (a pod priority or class, a gang annotation, a non-zero
-global-default PriorityClass) raises ``NotImplementedError`` instead of
-solving as a plain batch.
+``TorchSolver()``, which runs on CUDA and raises without a card. A live
+batch carrying an admission marker (a pod priority or class, a gang
+annotation, a non-zero global-default PriorityClass) goes through the
+port's admission plane (``karpenter_tpu_torch.admission``), as in the
+JAX package. Left out: the flight-recorder spans and anomalies
+(ROADMAP.md Queue 1 item 2).
 """
 
 from __future__ import annotations
@@ -26,7 +26,6 @@ from karpenter_tpu_torch.models.topology import Topology
 from karpenter_tpu_torch.scheduling import daemon_schedulable
 from karpenter_tpu_torch.utils import pod as pod_util
 from karpenter_tpu_torch.utils import resources as resutil
-from karpenter_tpu_torch.utils.envknobs import env_bool
 
 
 class ClusterStateView:
@@ -130,26 +129,6 @@ def nodepool_ready(np) -> bool:
     return True
 
 
-def admission_markers(pods, store=None) -> bool:
-    """True when a batch carries any admission marker — a priority field,
-    a named class, a gang annotation, or (with a store) a global-default
-    PriorityClass that would tier the batch: the JAX package's
-    ``AdmissionPlane.engages`` (``admission/plane.py:104``), with its
-    ``KARPENTER_ADMISSION`` switch."""
-    if not env_bool("KARPENTER_ADMISSION", True) or not pods:
-        return False
-    for p in pods:
-        if p.priority is not None or p.priority_class_name:
-            return True
-        if p.metadata.annotations.get(wk.POD_GROUP_ANNOTATION):
-            return True
-    if store is not None:
-        for pc in store.list("priorityclasses"):
-            if pc.global_default and pc.value != 0:
-                return True
-    return False
-
-
 class Provisioner:
     def __init__(self, store, cloud, solver=None, clock=None, batcher=None,
                  recorder=None, cluster=None, registry=None, log=None):
@@ -174,6 +153,7 @@ class Provisioner:
         self.recorder = recorder
         self._change_monitor = ChangeMonitor(clock=self.clock)
         self.cluster = cluster  # state plane; optional
+        self._admission = None  # admission plane (priority/gang), lazy
         # unschedulable-pod retry clock (see _maybe_retry_pending)
         self._pending_retry_at: float = -1e18
 
@@ -336,15 +316,6 @@ class Provisioner:
             from karpenter_tpu_torch.models.scheduler import SchedulerResults
 
             return SchedulerResults(new_claims=[], existing_nodes=[], pod_errors={})
-        # live batches with admission markers route through the JAX
-        # package's admission plane, which the port does not have yet:
-        # refuse them rather than solve them as a plain batch
-        if live_batch and admission_markers(pods, self.store):
-            raise NotImplementedError(
-                "Provisioner: a batch with admission markers (pod "
-                "priorities, gang annotations, a default PriorityClass) "
-                "needs the admission plane, ROADMAP.md Queue 1 item 16")
-
         view = (
             ClusterStateView(self.cluster, self.store)
             if self.cluster is not None
@@ -360,24 +331,52 @@ class Provisioner:
             existing_nodes = [en.fork(topology) for en in enodes_base]
         else:
             existing_nodes = self._existing_nodes(state_nodes, topology)
-        results = self.solver.solve(
-            pods,
-            templates,
-            its_by_pool,
-            topology=topology,
-            existing_nodes=existing_nodes,
-            daemon_overhead=overhead,
-            limits=limits or None,
-            volume_topology=vt,
-            existing_base=existing_base,
-        )
+        # live batches with admission markers (pod priorities, gang
+        # annotations, a tiering default class) route through the
+        # admission plane — the tiered cascade, gang atomicity, and the
+        # preemption ladder (karpenter_tpu_torch/admission). Disruption
+        # counterfactuals and marker-free batches keep the single solve.
+        plane = self.admission_plane() if live_batch else None
+        if plane is not None and plane.engages(pods):
+            results = plane.solve_round(
+                self.solver,
+                pods,
+                templates,
+                its_by_pool,
+                topology=topology,
+                existing_nodes=existing_nodes,
+                daemon_overhead=overhead,
+                limits=limits or None,
+                volume_topology=vt,
+            )
+        else:
+            results = self.solver.solve(
+                pods,
+                templates,
+                its_by_pool,
+                topology=topology,
+                existing_nodes=existing_nodes,
+                daemon_overhead=overhead,
+                limits=limits or None,
+                volume_topology=vt,
+                existing_base=existing_base,
+            )
         # host-routed accounting (live batches only — disruption
         # counterfactuals must not inflate the counter, helpers.go:84
         # stance): pods the device compiler handed to the host engine,
         # by reason
         if live_batch:
-            routed = getattr(self.solver, "last_device_stats", None) or {}
-            routed = routed.get("host_routed") or {}
+            # admission rounds aggregate host-routed reasons across the
+            # whole cascade (the solver's last_device_stats only reflects
+            # its final inner call); plain rounds read the solver directly
+            adm = getattr(results, "admission", None)
+            if adm is not None:
+                routed = adm.get("host_routed") or {}
+            else:
+                routed = getattr(
+                    self.solver, "last_device_stats", None
+                ) or {}
+                routed = routed.get("host_routed") or {}
             if routed:
                 ctr = self.registry.counter(
                     m.PROVISIONING_HOST_ROUTED,
@@ -388,6 +387,18 @@ class Provisioner:
                         ctr.inc(count, reason=reason)
         results.truncate_instance_types()
         return results
+
+    def admission_plane(self):
+        """The admission plane (priority tiers / gangs / preemption),
+        built lazily — marker-free fleets never pay the import."""
+        if self._admission is None:
+            from karpenter_tpu_torch.admission import AdmissionPlane
+
+            self._admission = AdmissionPlane(
+                self.store, registry=self.registry, recorder=self.recorder,
+                log=self.log,
+            )
+        return self._admission
 
     def solver_inputs(self):
         """Per-nodepool solver inputs: (templates, instance types by pool,

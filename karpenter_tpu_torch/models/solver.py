@@ -24,10 +24,11 @@ debit before the host pass, and ``existing_base=``: a confirming
 simulation's existing-node tensors sliced out of the disruption round's
 snapshot (``DisruptionSnapshot.derive_esnap``) instead of re-tensorized.
 
-Not in this slice (see ROADMAP.md): ``tier_of=`` (the fused admission
-round), which raises ``NotImplementedError``; the native C++ rung, the
-small-batch host cutoff, the mesh, replay capsules and the decision
-ledger.
+``tier_of=`` (the fused admission round, ``admission/plane.py``) splits
+the signature groups by priority tier and orders the scan tier-major, as
+the JAX package does; the waves path ignores it. Not in this slice (see
+ROADMAP.md): the native C++ rung, the small-batch host cutoff, the mesh,
+replay capsules and the decision ledger.
 """
 
 from __future__ import annotations
@@ -109,10 +110,6 @@ class TorchSolver(Solver):
               existing_nodes=(), daemon_overhead=None, limits=None,
               max_bins: int | None = None, volume_topology=None,
               existing_base=None, tier_of=None) -> SchedulerResults:
-        if tier_of is not None:
-            raise NotImplementedError(
-                "TorchSolver: tier_of= (the fused admission round) is a "
-                "later slice of the port (ROADMAP.md Queue 1 item 16)")
         has_topology = bool(getattr(
             topology, "has_groups",
             topology is not None and not isinstance(topology, NullTopology)))
@@ -181,7 +178,8 @@ class TorchSolver(Solver):
                     volume_topology=volume_topology)
             t0 = time.perf_counter()
             snap = tensorize(eligible, templates, instance_types,
-                             daemon_overhead=daemon_overhead, limits=limits)
+                             daemon_overhead=daemon_overhead, limits=limits,
+                             tier_of=tier_of)
             stages["tensorize_ms"] = (time.perf_counter() - t0) * 1000.0
             device_plan = None
         esnap = None
@@ -698,6 +696,12 @@ class TorchSolver(Solver):
             if not no_limits:
                 rem_limits[m] -= tcap[ok].max(axis=0)
             claim._gcounts = gcounts  # for the solver's topology commit
+            if snap.g_tier is not None and gcounts:
+                # tier of the bin's OPENING group (the first group index
+                # with pods here — group order IS scan order, and a bin is
+                # first used at its opening step), so the fused admission
+                # round can charge each claim to the tier that opened it
+                claim._tier = int(snap.g_tier[gcounts[0][0]])
             claims.append(claim)
         # pods the kernel couldn't place (unsched counts are implied by the
         # unconsumed remainder of each group)

@@ -20,6 +20,11 @@ shared library with a plain C interface (no PyTorch headers), loaded with
 named by a hash of the source and flags, so an edited source rebuilds.
 ``LAUNCHES`` counts each kernel launch (only launches, not plain-version
 calls), so a run can show that its path went through the kernels.
+
+A kernel that does not build or launch raises :class:`KernelError`.
+``DEVICE_FAULTS`` is that class, ``OSError`` (a kernel library that does
+not load) and torch's own CUDA errors: the faults a caller that falls back
+on host-side errors must let through.
 """
 
 from __future__ import annotations
@@ -36,6 +41,8 @@ from typing import NamedTuple
 
 import torch
 
+from karpenter_tpu_torch.utils.envknobs import env_str
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
@@ -51,17 +58,25 @@ BUILD_LOGS: dict = {}
 _LIBS: dict = {}
 
 
+class KernelError(RuntimeError):
+    """A kernel of the port did not build or launch."""
+
+
+DEVICE_FAULTS = (KernelError, OSError, torch.cuda.OutOfMemoryError) + (
+    (torch.AcceleratorError,) if hasattr(torch, "AcceleratorError") else ())
+
+
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
 
 
 def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cuda_home = env_str("CUDA_HOME", "/usr/local/cuda")
     for cand in (Path(cuda_home) / "bin" / "nvcc", shutil.which("nvcc")):
         if cand and Path(cand).is_file():
             return str(cand)
-    raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels "
+    raise KernelError("nvcc not found (set CUDA_HOME): the CUDA kernels "
                        "are compiled at first use")
 
 
@@ -97,7 +112,7 @@ def build(names=None) -> dict:
             continue
         os.replace(tmp, out)
     if failed:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+        raise KernelError("CUDA kernel build failed:\n" + "\n".join(failed))
     return {name: _lib_path(name) for name in names}
 
 
@@ -120,7 +135,7 @@ def _lib(name: str) -> ctypes.CDLL:
 def _check_launch(lib, rc: int, name: str) -> None:
     if rc != 0:
         msg = lib.karpenter_cuda_error_string(rc).decode()
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} ({rc})")
+        raise KernelError(f"CUDA kernel {name} failed to launch: {msg} ({rc})")
 
 
 def _stream(index: int) -> int:

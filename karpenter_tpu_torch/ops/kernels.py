@@ -58,6 +58,20 @@ _INT32_MAX = 2**31 - 1
 _INT32_MIN = -(2**31)
 
 
+def resolve_device(device, what: str) -> torch.device:
+    """``device``, or CUDA when None — raising when no CUDA device is
+    present, as ``TorchSolver()`` does: ``what`` (named in the message)
+    never drops to the CPU on its own; ``device="cpu"`` is the plain
+    PyTorch path."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{what} run on CUDA and no CUDA device is present; pass "
+                "device='cpu' to run the plain PyTorch path")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
 def sat_int32(x: torch.Tensor) -> torch.Tensor:
     """float32 → int32 the way XLA converts: values at or above 2^31 (and
     +inf) give INT32_MAX, values below -2^31 (and -inf) give INT32_MIN,

@@ -61,6 +61,7 @@ import time
 import numpy as np
 import torch
 
+from karpenter_tpu_torch.ops.kernels import resolve_device
 from karpenter_tpu_torch.utils.envknobs import env_float, env_int, env_str
 
 __all__ = ["relax_enabled", "lp_bin_floor", "floor_inputs", "floor_lb",
@@ -100,18 +101,6 @@ RELAX_STATS = {
     # wall clock of both rungs' device work
     "kernel_ms": 0.0,
 }
-
-
-def _device(device) -> torch.device:
-    """The device a rung runs on: ``device``, or CUDA when None — raising
-    when no CUDA device is present, as ``TorchSolver()`` does."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "the LP relax rungs run on CUDA and no CUDA device is "
-                "present; pass device='cpu' to run the plain PyTorch path")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 def relax_enabled(device=None) -> bool:
@@ -240,7 +229,7 @@ def lp_bin_floor(snap, est: int, device=None) -> int:
     groups, no type, or G×T above 2^18). ``device`` is the solver's (None
     means CUDA): the iteration runs there, and it decides the default of
     the gate."""
-    dev = _device(device)
+    dev = resolve_device(device, "the LP relax rungs")
     if not relax_enabled(dev):
         return est
     G, T = snap.G, snap.T
@@ -470,7 +459,7 @@ def joint_relax_plan(bundle, candidates, col_arr, contrib, cum, timings,
     (``cause`` is also in ``RELAX_STATS['last_fallback']``)."""
     from karpenter_tpu_torch.ops import consolidate as _cons
 
-    dev = _device(device)
+    dev = resolve_device(device, "the LP relax rungs")
     RELAX_STATS["attempts"] += 1
     snap = bundle.snap
     G, N = snap.G, len(candidates)

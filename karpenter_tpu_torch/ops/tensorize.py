@@ -15,10 +15,12 @@ dirty rows are rebuilt by the same function and spliced in, removed rows
 are masked in place so the E axis never shrinks). A waves plan
 (``ops/waves.py``) enters through ``tensorize(..., device_plan=plan)``.
 
-Left out of this copy (later slices of the port, see ROADMAP.md): the
-priority-tier split (``tier_of``, the fused admission round), the mesh's
-``shard_view``, the flight-recorder spans and the metrics-registry
-counter of clamped negative availabilities (``STATS`` still counts them).
+The priority-tier split (``tensorize(..., tier_of=...)``) orders the scan
+tier-major for the fused admission round. Left out of this copy (later
+slices of the port, see ROADMAP.md): the mesh's ``shard_view``, the
+flight-recorder spans, the tier axis's pad-waste record and the
+metrics-registry counter of clamped negative availabilities (``STATS``
+still counts them).
 
 Group-row cache contract (as in the original): ``tensorize`` caches each
 group's packed requirement rows keyed on (pod scheduling signature, waves
@@ -1056,7 +1058,7 @@ def _build_type_side(templates, instance_types_by_pool, group_reqs, resources):
     return cached
 
 def tensorize(pods, templates, instance_types_by_pool, daemon_overhead=None,
-              limits=None, device_plan=None):
+              limits=None, device_plan=None, tier_of=None):
     """Compile a scheduling snapshot to tensors.
 
     pods: eligible pods (caller pre-filters with device_eligible); ignored
@@ -1068,6 +1070,10 @@ def tensorize(pods, templates, instance_types_by_pool, daemon_overhead=None,
     device_plan: pre-compiled waves.WavesPlan (topology-compiled subgroups
         with extra requirements / bin caps / conflict classes), groups
         already in the order the scan should process them
+    tier_of: pod uid -> priority-tier rank (higher = packs first). Splits
+        signature groups per tier and orders the scan tier-major so the
+        fused admission round fences tiers on the device. Ignored when
+        device_plan is given — the topology path keeps the host cascade.
     """
     daemon_overhead = daemon_overhead or {}
     limits = limits or {}
@@ -1106,14 +1112,33 @@ def tensorize(pods, templates, instance_types_by_pool, daemon_overhead=None,
         # re-solves the same (immutable-spec) Pod instances round after
         # round; clones (which relaxation/injection mutate) are fresh
         # objects without the cached attribute
+        base_groups = group_by_signature(pods)
+        if tier_of:
+            # sub-split each signature group by priority tier: the scan IS
+            # the fence (tier-major order below), so pods of one spec but
+            # different tiers must occupy distinct rows to pack in their
+            # tier's turn. Same-signature rows share a row_key — the row
+            # cache content is tier-independent, so sharing stays sound.
+            split = []
+            for g in base_groups:
+                by_tier: dict = {}
+                for p in g:
+                    by_tier.setdefault(tier_of.get(p.uid, 0), []).append(p)
+                split.extend(by_tier.values())
+            base_groups = split
+
+        def _tier(g):
+            return tier_of.get(g[0].uid, 0) if tier_of else 0
+
         groups = sorted(
-            group_by_signature(pods),
+            base_groups,
             key=lambda g: (
+                -_tier(g),
                 -g[0].effective_requests().get(resutil.CPU, 0.0),
                 -g[0].effective_requests().get(resutil.MEMORY, 0.0),
             ),
         )
-        g_tier_list = [0] * len(groups)
+        g_tier_list = [_tier(g) for g in groups]
         group_reqs = [pod_requirements(g[0]) for g in groups]
         # group_by_signature cached the signature on every rep
         row_keys = [(g[0].__dict__["_sig_cache"], ()) for g in groups]

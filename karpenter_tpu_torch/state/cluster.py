@@ -13,9 +13,9 @@ state/informer/{pod,node,nodeclaim}.go collapsed into one method — our
 hermetic runtime has a single watch stream).
 
 The port's copy of ``karpenter_tpu/state/cluster.py`` with its imports
-changed. Left out: the fleet-ledger timeline events, interruption notices
-and the delta journal's wire form (the solver service's), none of which
-the disruption snapshot reads.
+changed. Left out: the fleet-ledger timeline events (``bind`` and
+``interrupt``) and the delta journal's wire form (the solver service's),
+none of which the disruption snapshot reads.
 """
 
 from __future__ import annotations
@@ -349,6 +349,28 @@ class Cluster:
         sn = self._node_by_name(node_name)
         if sn is not None:
             sn.nominate(self.clock.now())
+
+    # -- interruption notices (spot resilience) --------------------------
+    def note_interruption(self, provider_id: str, deadline: float) -> bool:
+        """Mark a StateNode with its provider reclaim deadline (the
+        disruption controller pulls notices from the cloud provider and
+        lands them here). Journals a node-scoped delta — the cached
+        disruption snapshot stays delta-advanceable — and bumps the
+        consolidation generation so the round that must act re-probes.
+        Idempotent per (node, deadline); False when the node is unknown
+        (a notice for capacity we no longer track)."""
+        sn = self._nodes.get(provider_id)
+        if sn is None:
+            return False
+        if sn.interruption_deadline == deadline:
+            return True
+        sn.interruption_deadline = deadline
+        self.mark_unconsolidated(("node", provider_id))
+        return True
+
+    def interruptions_pending(self) -> bool:
+        """Whether any tracked node carries a live interruption notice."""
+        return any(sn.interruption_pending() for sn in self._nodes.values())
 
     # -- deletion marks (cluster.go MarkForDeletion) ---------------------
     def mark_for_deletion(self, *provider_ids):

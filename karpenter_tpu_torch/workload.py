@@ -19,6 +19,17 @@
   the port's ``Environment`` — deployments, provisioning, binding and the
   scale-down — with the disruption controller armed, for the operator
   loop.
+- **admission grid** (``priority_mix``, ``gang_mix``, ``preempt_env``):
+  the copies of ``perf/configs.py``'s admission families — a seeded burst
+  over three priority tiers, loose pods plus 20 pod-groups (one starved),
+  and a limit-capped fleet of low-priority replicas a high-priority burst
+  can only enter by preemption.
+- **spot storm** (``spot_catalog``, ``spot_env``): the copy of
+  ``perf/configs.py``'s spot-pinned fleet at full utilization, on one
+  16-cpu type whose spot offerings anti-correlate price and interruption
+  risk across four zones, for ``ChaosCloud``'s storms.
+
+Every function here keeps the JAX package's sizes, seeds and draw order.
 """
 
 from __future__ import annotations
@@ -393,3 +404,270 @@ def consolidation_env(n_nodes: int, n_groups: int | None = None,
     env.run_until_idle(max_rounds=rounds)
     env.disruption.poll_period = 0.0
     return env
+
+
+def _pool(name="default"):
+    from karpenter_tpu_torch.api.nodepool import NodePool
+    from karpenter_tpu_torch.api.objects import ObjectMeta
+
+    return NodePool(metadata=ObjectMeta(name=name))
+
+
+def priority_mix(n_pods=5000, n_types=100, seed=7):
+    """The ``priority-mix`` admission family (``perf/configs.py:319``): a
+    seeded burst spread over three priority tiers (8000, 1000, 0) with the
+    reference benchmark's size menus, plus a light arch-selector mix so
+    the tiers don't collapse into one signature. Returns (pods, pools,
+    catalog)."""
+    import random
+
+    from karpenter_tpu_torch.api import labels as wk
+    from karpenter_tpu_torch.cloudprovider.catalog import benchmark_catalog
+
+    r = random.Random(seed)
+    catalog = benchmark_catalog(n_types)
+    pools = [_pool()]
+    CPUS = (0.25, 0.5, 1.0, 2.0)
+    MEMS = (0.5, 1.0, 2.0, 4.0)
+    TIERS = (8000, 1000, 0)
+    pods = []
+    for i in range(n_pods):
+        p = _pod(f"pr{i}", r.choice(CPUS), r.choice(MEMS))
+        p.priority = r.choice(TIERS)
+        if r.random() < 0.25:
+            p.node_selector = {wk.ARCH_LABEL: r.choice(("amd64", "arm64"))}
+        pods.append(p)
+    return pods, pools, catalog
+
+
+def gang_mix(n_pods=3000, n_types=100, seed=11, n_gangs=20):
+    """The ``gang-mix`` admission family (``perf/configs.py:343``): loose
+    pods plus annotation-keyed pod-groups of 4-16 members (half
+    zone-co-located), the last one starved (min-member above the members
+    present) so it must route whole. Returns (pods, pools, catalog)."""
+    import random
+
+    from karpenter_tpu_torch.api import labels as wk
+    from karpenter_tpu_torch.api.objects import ObjectMeta, Pod
+    from karpenter_tpu_torch.cloudprovider.catalog import benchmark_catalog
+
+    r = random.Random(seed)
+    catalog = benchmark_catalog(n_types, zones=("zone-1", "zone-2", "zone-3"))
+    pools = [_pool()]
+    pods = []
+    for i in range(n_pods - n_gangs * 8):
+        p = _pod(f"l{i}", r.choice((0.25, 0.5, 1.0)), r.choice((1.0, 2.0)))
+        p.priority = r.choice((0, 1000))
+        pods.append(p)
+    for g in range(n_gangs):
+        size = r.choice((4, 8, 12, 16))
+        annotations = {wk.POD_GROUP_ANNOTATION: f"gang-{g}"}
+        if g % 2 == 0:
+            annotations[wk.POD_GROUP_TOPOLOGY_ANNOTATION] = (
+                wk.TOPOLOGY_ZONE_LABEL)
+        if g == n_gangs - 1:
+            annotations[wk.POD_GROUP_MIN_ANNOTATION] = str(size + 8)
+        for i in range(size):
+            p = Pod(
+                metadata=ObjectMeta(name=f"g{g}-{i}",
+                                    annotations=dict(annotations)),
+                requests={"cpu": 2.0, "memory": 4.0 * GIB},
+            )
+            p.priority = 1000
+            pods.append(p)
+    return pods, pools, catalog
+
+
+def preempt_env(n_nodes=8, solver=None):
+    """The ``preempt-mix`` scenario (``perf/configs.py:380``): a fleet
+    capped at ``16 * n_nodes`` cpu, filled by ``n_nodes`` deployments of
+    three low-priority 5-cpu replicas, with ``high`` (10000) and ``low``
+    (0) PriorityClasses. Returns the port's ``Environment`` with the low
+    tier bound; the caller injects the high tier. ``solver`` None means
+    ``TorchSolver()`` (CUDA)."""
+    from karpenter_tpu_torch.api.objects import (
+        Deployment,
+        ObjectMeta,
+        PriorityClass,
+    )
+    from karpenter_tpu_torch.cloudprovider.catalog import make_instance_type
+    from karpenter_tpu_torch.operator import Environment
+
+    env = Environment(instance_types=[make_instance_type("xl", 16, 64)],
+                      solver=solver)
+    pool = _pool()
+    pool.spec.limits = {"cpu": str(16 * n_nodes)}
+    env.create("nodepools", pool)
+    env.create(
+        "priorityclasses",
+        PriorityClass(metadata=ObjectMeta(name="high"), value=10000),
+        PriorityClass(metadata=ObjectMeta(name="low"), value=0),
+    )
+    for i in range(n_nodes):
+        env.store.create("deployments", Deployment(
+            metadata=ObjectMeta(name=f"low{i}"), replicas=3,
+            template=_pod(f"low{i}-tpl", 5.0, 8.0,
+                          priority_class_name="low")))
+    env.run_until_idle(max_rounds=300)
+    return env
+
+
+# the spot storm's market (perf/configs.py:203): four zones whose SPOT
+# offerings anti-correlate price and interruption risk — the cheap zones
+# are the ones the storm reclaims
+SPOT_PRICE_BY_ZONE = {"zone-1": 0.20, "zone-2": 0.24,
+                      "zone-3": 0.38, "zone-4": 0.40}
+SPOT_RISK_BY_ZONE = {"zone-1": 0.85, "zone-2": 0.55,
+                     "zone-3": 0.04, "zone-4": 0.02}
+
+
+def spot_catalog():
+    from karpenter_tpu_torch.cloudprovider.catalog import make_instance_type
+
+    return [make_instance_type(
+        "xl", 16, 64,
+        spot_price_by_zone=dict(SPOT_PRICE_BY_ZONE),
+        spot_risk=dict(SPOT_RISK_BY_ZONE),
+    )]
+
+
+def spot_env(n_nodes=1000, solver=None):
+    """The spot storm's fleet (``perf/configs.py:219``): ``n_nodes``
+    deployments of three spot-pinned 5-cpu replicas, each filling one
+    16-cpu spot node, so churn comes only from the storm and placement is
+    pure price policy. Returns the port's ``Environment`` with disruption
+    armed and idle. ``solver`` None means ``TorchSolver()`` (CUDA)."""
+    from karpenter_tpu_torch.api import labels as wk
+    from karpenter_tpu_torch.api.objects import Deployment, ObjectMeta
+    from karpenter_tpu_torch.operator import Environment
+
+    env = Environment(instance_types=spot_catalog(), solver=solver,
+                      enable_disruption=True)
+    env.disruption.poll_period = float("inf")
+    pool = _pool()
+    pool.spec.disruption.consolidate_after = 0.0
+    pool.spec.disruption.budgets[0].nodes = "100%"
+    env.create("nodepools", pool)
+    for i in range(n_nodes):
+        tpl = _pod(f"s{i}-tpl", 5.0, 10.0,
+                   node_selector={wk.CAPACITY_TYPE_LABEL: "spot"})
+        env.store.create("deployments", Deployment(
+            metadata=ObjectMeta(name=f"s{i}"), replicas=3, template=tpl))
+    env.run_until_idle(max_rounds=300)
+    env.disruption.poll_period = 0.0
+    return env
+
+
+def fleet_cost(env) -> float:
+    """The fleet's summed NOMINAL offering prices (``perf/run.py``'s
+    ``_fleet_cost``: the end-state cost the spot legs compare)."""
+    from karpenter_tpu_torch.cloudprovider.types import CatalogView
+
+    view = CatalogView(env.store.list("nodepools"), env.disruption.cloud)
+    total = 0.0
+    for node in env.store.list("nodes"):
+        o = view.offering(node.labels)
+        if o is not None:
+            total += o.price
+    return total
+
+
+def spot_storm(n_nodes=1000, lam=2.0, rounds=10, rate=0.25, step=30.0,
+               seed=7, shift=1.25, solver=None, on_env=None) -> dict:
+    """One leg of ``perf/run.py``'s ``run_spot`` through the port: build
+    ``spot_env(n_nodes)`` with ``KARPENTER_SPOT_RISK_LAMBDA=lam``, arm
+    ``ChaosCloud(random.Random(seed))`` and run ``rounds`` storm rounds
+    (a notice storm at ``rate`` with a lead of two steps; a no-lead notice
+    on an un-noticed node every 4th round; a ×``shift`` price shift on
+    risk ≥ 0.5 every 2nd round; ``step`` seconds per round, reclaims at
+    the deadlines), then four sweeps. ``on_env(env)`` is called once the
+    fleet stands, before the storm. Returns the leg's counts and end
+    state; the fleet-ledger reconciliation is not part of the port yet."""
+    import os
+    import random
+
+    from karpenter_tpu_torch.cloudprovider.chaos import ChaosCloud
+    from karpenter_tpu_torch.operator import metrics as m
+    from karpenter_tpu_torch.utils.envknobs import env_str
+
+    prior = env_str("KARPENTER_SPOT_RISK_LAMBDA")
+    os.environ["KARPENTER_SPOT_RISK_LAMBDA"] = str(lam)
+    try:
+        env = spot_env(n_nodes, solver=solver)
+        if on_env is not None:
+            on_env(env)
+        chaos = ChaosCloud(random.Random(seed)).arm(env)
+        pool = env.store.list("nodepools")[0]
+        offerings = [o for it in env.cloud.get_instance_types(pool)
+                     for o in it.offerings]
+        created = env.registry.counter(m.NODECLAIMS_CREATED, "")
+        creates0 = created.total()
+        for r in range(rounds):
+            # the two-minute warning: a lead of two rounds, so the
+            # proactive path has a full round of slack
+            chaos.notice_storm(rate, lead_s=2.0 * step, early=True)
+            if r % 4 == 3:
+                # a no-lead notice exercises the degraded rung; only
+                # UN-noticed nodes qualify, so a with-lead node's early
+                # flag is never overwritten
+                free = [t for t in chaos._node_risks()
+                        if not chaos.has_notice(t[0].provider_id)]
+                if free:
+                    node, _ = chaos.rng.choice(free)
+                    chaos.inject_notice(
+                        node.provider_id, env.clock.now() + 1.0,
+                        early=False)
+            if r % 2 == 1:
+                chaos.shift_prices(offerings, factor=shift, min_risk=0.5)
+            env.run_until_idle(max_rounds=500)
+            env.clock.step(step)
+            env.run_until_idle(max_rounds=500)
+            chaos.reclaim_expired()
+            env.run_until_idle(max_rounds=500)
+        # storm over: sweep the remaining deadlines and converge
+        for _ in range(4):
+            env.clock.step(step)
+            env.run_until_idle(max_rounds=500)
+            chaos.reclaim_expired()
+            env.run_until_idle(max_rounds=500)
+        reg = env.registry
+        return {
+            "lambda": lam,
+            "end_nodes": len(env.store.list("nodes")),
+            "pods_bound": len(
+                [p for p in env.store.list("pods") if p.node_name]),
+            "end_cost": round(fleet_cost(env), 6),
+            "creates": int(created.total() - creates0),
+            "notices": chaos.stats["notices"],
+            "reclaims": chaos.stats["reclaims"],
+            "price_shifts": chaos.stats["price_shifts"],
+            "pods_lost": chaos.stats["pods_lost"],
+            "pods_lost_with_lead": chaos.stats["pods_lost_with_lead"],
+            "proactive_drains": int(reg.counter(
+                m.INTERRUPTION_PROACTIVE_DRAINS, "").total()),
+            "deadline_degradations": int(reg.counter(
+                m.INTERRUPTION_DEADLINE_DEGRADATIONS, "").total()),
+            "env": env,
+        }
+    finally:
+        if prior is None:
+            os.environ.pop("KARPENTER_SPOT_RISK_LAMBDA", None)
+        else:
+            os.environ["KARPENTER_SPOT_RISK_LAMBDA"] = prior
+
+
+def spot_gates(aware: dict, blind: dict, n_nodes: int) -> dict:
+    """``perf/run.py``'s three spot gates over a risk-aware and a
+    risk-blind leg: the aware fleet ends strictly cheaper, its creates
+    stay within ``2 × notices + 2% of the fleet + 8``, and no pod is lost
+    to a reclaim whose notice came with lead, on either leg."""
+    churn_bound = int(2 * aware["notices"] + 0.02 * n_nodes + 8)
+    return {
+        "cost_beats_blind": bool(
+            aware["end_cost"] < blind["end_cost"] - 1e-9),
+        "churn_bound": churn_bound,
+        "churn_bound_ok": bool(aware["creates"] <= churn_bound),
+        "zero_late_drain_ok": bool(
+            aware["pods_lost_with_lead"] == 0
+            and blind["pods_lost_with_lead"] == 0),
+    }

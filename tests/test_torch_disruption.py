@@ -365,3 +365,59 @@ def test_snapshot_advanced_across_an_eviction_wave_equals_a_fresh_build():
     assert log.commands, "no command ran"
     assert compared >= 2 and advanced_rounds >= 2
     assert not cache.stats["refusals"], cache.stats
+
+
+# ---------------------------------------------------------------------------
+# the fault rule: host-side errors fall back, device faults propagate
+# ---------------------------------------------------------------------------
+
+FAULT_SITES = {
+    # (where the fault is raised, the knobs, the probe-failure label)
+    "ladder-probe": ("DisruptionSnapshot.dispatch",
+                     {"KARPENTER_GLOBAL_CONSOLIDATION": "0"}, "multi"),
+    "joint-plan": ("joint_retirement_plan",
+                   {"KARPENTER_GLOBAL_CONSOLIDATION": "1"}, "global"),
+    "prewarm": ("SnapshotCache.get",
+                {"KARPENTER_GLOBAL_CONSOLIDATION": "1"}, "prewarm"),
+}
+
+
+@pytest.mark.parametrize("fault", ["host-error", "kernel-fault"])
+@pytest.mark.parametrize("site", sorted(FAULT_SITES))
+def test_probe_fault_rule(site, fault, monkeypatch):
+    """A ``NotImplementedError`` (a ``RuntimeError`` subclass) raised in a
+    probe, the joint plan or the prewarm is a host-side error: the round
+    falls back as the JAX package's does, still ships a command, and the
+    failure is counted in ``DISRUPTION_PROBE_FAILURES``. The kernel error
+    class of ``ops/cuda_kernels.py`` propagates out of the round."""
+    from karpenter_tpu_torch.ops import consolidate as cons
+    from karpenter_tpu_torch.ops.cuda_kernels import KernelError
+
+    target, knobs, label = FAULT_SITES[site]
+    for name, value in knobs.items():
+        monkeypatch.setenv(name, value)
+    monkeypatch.setenv("KARPENTER_RELAX", "0")
+    env = config4_env(PORT, 24)
+    log = CommandLog(env)
+    exc = NotImplementedError("host") if fault == "host-error" else (
+        KernelError("launch"))
+
+    def raising(*a, **kw):
+        raise exc
+
+    owner, _, attr = target.rpartition(".")
+    monkeypatch.setattr(getattr(cons, owner) if owner else cons, attr,
+                        raising)
+    env.disruption.poll_period = 0.0
+    env.clock.step(20.0)
+    if fault == "kernel-fault":
+        with pytest.raises(KernelError):
+            env.run_until_idle(max_rounds=400)
+        return
+    env.run_until_idle(max_rounds=400)
+    m = mod(PORT, "operator.metrics")
+    failures = env.registry.counter(m.DISRUPTION_PROBE_FAILURES)
+    assert failures.value(method=label) >= 1
+    assert log.commands, "the round did not fall back to a search"
+    nodes, unbound, _ = end_state(env)
+    assert not unbound and len(nodes) < 24

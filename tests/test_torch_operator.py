@@ -18,9 +18,9 @@ the JAX package with ``TPUSolver`` on the CPU (as its tests pin it,
   ``existing_base=bundle``) gives exactly what the fresh
   ``existing_nodes`` path gives, in each package, and the port's equals
   the JAX package's.
-- **Admission markers**: a live batch with a pod priority raises
-  ``NotImplementedError`` in the port rather than solving as a plain
-  batch.
+- **Admission markers**: a live batch with a pod priority solves
+  through the port's admission plane, as the JAX package's does, and a
+  marker-free batch keeps the plain solve.
 
 The harness here (``Kit``, ``CommandLog``, ``end_state``, ``converge``,
 the fleets) is shared with ``tests/test_torch_disruption.py``.
@@ -485,20 +485,30 @@ def test_existing_base_equals_the_fresh_existing_nodes_path(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# what the port does not have yet: the admission plane
+# admission markers: the admission plane
 # ---------------------------------------------------------------------------
 
 
 def test_admission_markers_raise_not_solve():
-    k = Kit(PORT)
-    env = k.env(E2E_TYPES)
-    env.create("nodepools", k.nodepool())
-    p = k.pod("urgent")
-    p.priority = 1000
-    with pytest.raises(NotImplementedError, match="item 16"):
+    """A marked batch no longer raises: it solves through the admission
+    plane and lands where the JAX package's does. A marker-free batch
+    does not engage the plane and takes the plain solve."""
+    def marked(pkg):
+        k = Kit(pkg)
+        env = k.env(E2E_TYPES)
+        env.create("nodepools", k.nodepool())
+        p = k.pod("urgent")
+        p.priority = 1000
         env.provision(p)
-    # a marker-free batch takes the plain solve
+        return env
+
+    got, want = marked(PORT), marked(JAX)
+    assert got.provisioner._admission is not None
+    assert end_state(got) == end_state(want)
+    assert got.store.try_get("pods", "urgent").node_name
+    k = Kit(PORT)
     env2 = k.env(E2E_TYPES)
     env2.create("nodepools", k.nodepool())
     (q,) = env2.provision(k.pod("plain"))
     assert q.node_name
+    assert not env2.provisioner.admission_plane().engages([q])

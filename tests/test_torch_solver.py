@@ -156,18 +156,28 @@ def test_bin_axis_doubling_matches():
 
 
 def test_unsupported_inputs_raise():
-    """The fused admission round is a later slice of the port: ``tier_of``
-    raises rather than being ignored. ``existing_base`` (the disruption
-    snapshot, ported with the operator loop) is read only to slice the
-    existing-node tensors, so a batch without existing nodes solves as
-    it would without it (its parity is in ``test_torch_operator.py``)."""
+    """Nothing the solver takes raises any more. ``tier_of`` (the fused
+    admission round) splits the groups by tier as the JAX package's does,
+    and an empty one solves as no tiers; ``existing_base`` (the
+    disruption snapshot) is read only to slice the existing-node tensors,
+    so a batch without existing nodes solves as it would without it (its
+    parity is in ``test_torch_operator.py``, the tiered solve's in
+    ``test_torch_admission.py``)."""
     tp, tt, tits = port_side("headline")
+    jp, jt, jits = jax_side("headline")
     solver = TorchSolver(device="cpu")
     want = _claims(solver.solve(tp[:10], tt, tits))
     assert _claims(solver.solve(tp[:10], tt, tits,
                                 existing_base=object())) == want
-    with pytest.raises(NotImplementedError, match="tier_of"):
-        solver.solve(tp[:10], tt, tits, tier_of={})
+    assert _claims(solver.solve(tp[:10], tt, tits, tier_of={})) == want
+    # the last three pods first: their own tier packs ahead of the rest
+    got = solver.solve(tp[:10], tt, tits,
+                       tier_of={p.uid: 1 for p in tp[7:10]})
+    jres = TPUSolver().solve(jp[:10], jt, jits,
+                             tier_of={p.uid: 1 for p in jp[7:10]})
+    assert _claims(got) == _claims(jres)
+    assert [getattr(c, "_tier", None) for c in got.new_claims] == [
+        getattr(c, "_tier", None) for c in jres.new_claims]
 
 
 def test_signatures_match_jax_package():
