@@ -117,11 +117,44 @@ It imports nothing of JAX or of ``karpenter_tpu``.
    CPU: its one absorb row must answer True and ship the delete-only
    drain with no replacement, every pod still bound, equal on both.
 
+   Phases 3-10 run with ``KARPENTER_NATIVE_CUTOFF=0`` (set and restored
+   around them): the engine ladder off, every solve and probe on the
+   card, as their JAX numbers were taken.
+11. The engine ladder and the entry point, the seventh main path, with
+   routing at its default gates (``engines_phase``). The native engine
+   (``karpenter_tpu_torch/native``, g++) must build. The crossover: the
+   kernel arguments of five solves of the earlier phases — the storm's
+   last solve, the operator's last confirm solve, gang-mix's last gang
+   trial, priority-mix's fused dispatch and the headline — through
+   the native engine, the card and the CPU plain path, each timed, with
+   the engine the gates pick (the card for the headline and
+   priority-mix, off the card for the other three); the card and the CPU
+   bit-equal, the native engine's feasibility equal and its other
+   outputs compared; then one probe chunk of up to 128 rows through
+   ``solve_probe_batch``, the card and the CPU, ``placed_g`` and ``used``
+   equal. The storm with the ladder: ``spot_storm(100)``, both legs on
+   ``TorchSolver()`` with ``KARPENTER_RELAX=1``, the JAX package's counts
+   and gates, every storm solve on the host loop or the native engine
+   (34 + 2 and 1,015 + 191; with each leg's fleet build, the JAX
+   package's 1,049 and 195), compat launches 2 + Gp per card-routed solve
+   and probe chunk (none). The entry point:
+   ``python -m karpenter_tpu_torch`` on a manifest of one v1 and one
+   v1beta1 NodePool and 2,560 pods of 64 shapes, with
+   ``KARPENTER_BATCH_IDLE_DURATION=0 KARPENTER_BATCH_MAX_DURATION=0`` and
+   ``--tick 0.1 --max-ticks 40``: in process on the card (the batch must
+   take it, compat 2 + Gp per card solve, every pod bound), in process
+   with ``--device cpu`` (every solve native, the same nodes and bound
+   pods), and as a program with ``--metrics`` (``/metrics`` scraped
+   once, every pod bound).
+
+``python3 chip_smoke.py --full-storm [N]`` runs only the storm at
+``perf/run.py``'s size (N 1,000) with the ladder on, round by round.
+
 Prints one ``{"kernels": [...]}`` line, one ``{"solve": ...}`` line, one
 ``{"live_round": ...}`` line, one ``{"consolidation": ...}`` line, one
 ``{"operator": ...}`` line, one ``{"admission": ...}`` line, one
-``{"spot": ...}`` line, the card line, and as its last line
-``{"ok": true, "device": {...}}``. Any
+``{"spot": ...}`` line, one ``{"engines": ...}`` line, the card line,
+and as its last line ``{"ok": true, "device": {...}}``. Any
 failure raises and exits non-zero; so does a machine without CUDA.
 """
 
@@ -1127,28 +1160,19 @@ def operator_phase(cuda_kernels, kernels) -> tuple:
     """The operator loop on the card and on the CPU plain path:
     ``(line, launches, cases)`` — the printed record, the compat launches
     of the card's run, and its last dispatch's compat products."""
-    import os
-
     import torch
 
     from karpenter_tpu_torch.ops import consolidate as cons
 
-    knob = os.environ.get("KARPENTER_RELAX")
     # the relax rung's default on the card (on) for both paths, so the
     # CPU plain path takes the same rungs
-    os.environ["KARPENTER_RELAX"] = "1"
-    try:
+    with env_knobs(KARPENTER_RELAX="1"):
         t0 = time.perf_counter()
         card = operator_loop(None, kernels, cuda_kernels)
         card_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         cpu = operator_loop("cpu", kernels, cuda_kernels)
         cpu_s = time.perf_counter() - t0
-    finally:
-        if knob is None:
-            os.environ.pop("KARPENTER_RELAX", None)
-        else:
-            os.environ["KARPENTER_RELAX"] = knob
 
     nodes, unbound = card["end"]
     bound = sum(len(n[4]) for n in nodes)
@@ -1188,6 +1212,8 @@ def operator_phase(cuda_kernels, kernels) -> tuple:
           "operator: the card and the CPU plain path end differently")
 
     # the run's last dispatches, again: on the card and on the CPU
+    HANDOFF["operator confirm"] = card["last"]["solve"]
+    HANDOFF["probe chunk"] = card["last"]["probe"]
     args_gpu, step_kw = card["last"]["solve"]
     solve_gpu_ms, solve_cpu_ms = check_dispatch(args_gpu, step_kw, kernels,
                                                 "operator solve")
@@ -1268,9 +1294,11 @@ GANG_EXPECT = dict(tiers=2, solve_dispatches=21, gangs_placed=19,
                    gangs_routed=1, partial=0)
 PREEMPT_NODES = 8
 PREEMPT_EXPECT = dict(hi_bound=8, confirmed=8, declined=0, evictions=16)
-# the storm's fleet is cut from perf/run.py's 1,000 nodes: a G=1 solve on
-# the card costs ~0.1-0.2 s and the storm's solver calls grow with the
-# fleet (1,244 at 100 nodes), so 1,000 nodes would outlast the run
+# the storm's fleet is cut from perf/run.py's 1,000 nodes: the storm's
+# solver calls grow with the fleet (1,244 at 100 nodes), and at 1,000
+# nodes each costs the host ~0.14 s with the ladder on (the host loop
+# walks every existing node), so one leg alone outlasts the run
+# (``--full-storm`` runs it)
 SPOT_NODES, SPOT_NODES_FULL = 100, 1000
 SPOT_STORM = dict(rounds=10, rate=0.25, step=30.0, seed=7, shift=1.25)
 SPOT_EXPECT = {
@@ -1291,10 +1319,11 @@ class PathRecorder:
     compat launches such a run must show are ``2 + Gp`` per solve step
     and per probe chunk."""
 
-    def __init__(self, kernels, cons):
+    def __init__(self, kernels, cons, keep_steps=False):
         from karpenter_tpu_torch.models import TorchSolver
 
         self.kernels, self.cons = kernels, cons
+        self.keep_steps = keep_steps  # keep every step's inputs in .kept
         self.TorchSolver = TorchSolver
         self.real = dict(step=kernels.solve_step,
                          dispatch=cons.dispatch_counterfactual_rows,
@@ -1307,6 +1336,8 @@ class PathRecorder:
         self.probe_gp = 0
         self.solves = 0
         self.solve_ms: list = []
+        self.engines: dict = {}  # solves by the engine that ran them
+        self.kept: list = []
         self.last: dict = {}
         self.tag = ""
         self.tagged: dict = {}
@@ -1322,6 +1353,8 @@ class PathRecorder:
             rec.steps += 1
             rec.step_gp += int(args["g_demand"].shape[0])
             rec.last["step"] = (args, kw)
+            if rec.keep_steps:
+                rec.kept.append((args, kw))
             return real["step"](args, **kw)
 
         def dispatch(shared, Gp, Ep, e_avail, max_minv, g_count_k,
@@ -1348,6 +1381,8 @@ class PathRecorder:
             out = real["solve"](solver, *a, **kw)
             rec.solves += 1
             rec.solve_ms.append((time.perf_counter() - t0) * 1e3)
+            engine = solver.last_device_stats.get("engine")
+            rec.engines[engine] = rec.engines.get(engine, 0) + 1
             return out
 
         self.kernels.solve_step = step
@@ -1418,7 +1453,7 @@ def admission_grid(device, kernels, cuda_kernels, cons, sizes=None) -> dict:
         pods, pools, catalog = build(**sizes.get(name, {}))
         c_pods, tpl, its, topo = _round_inputs(pods, pools, catalog)
         solver = TorchSolver(device)
-        with PathRecorder(kernels, cons) as rec:
+        with PathRecorder(kernels, cons, keep_steps=True) as rec:
             cuda_kernels.reset_launches()
             t0 = time.perf_counter()
             res = AdmissionPlane().solve_round(solver, c_pods, tpl, its,
@@ -1460,7 +1495,10 @@ def admission_grid(device, kernels, cuda_kernels, cons, sizes=None) -> dict:
             solve_ms=rec.solve_ms, steps=rec.steps,
             compat_launches=launches["compat"],
             compat_expected=rec.expected_compat(),
-            shape=_round_shape(res), last=rec.last.get("step"))
+            shape=_round_shape(res), last=rec.last.get("step"),
+            # the last solve of at most 16 pods: a gang trial
+            last_small=next((st for st in reversed(rec.kept)
+                             if int(st[0]["g_count"].sum()) <= 16), None))
 
     # ---- preempt-mix: the eviction ladder through the Environment ----
     n_nodes = sizes.get("preempt_nodes", PREEMPT_NODES)
@@ -1596,6 +1634,8 @@ def admission_phase(cuda_kernels, kernels) -> tuple:
 
     # each family's last dispatch again, on the card and on the CPU
     cases, bit_equal, traces = [], {}, {}
+    HANDOFF["priority-mix fused"] = card["priority_mix"]["last"]
+    HANDOFF["gang trial"] = card["gang_mix"]["last_small"]
     for name, label in (("priority_mix", "fused"), ("gang_mix", "gang")):
         args_gpu, step_kw = card[name]["last"]
         gpu_ms, cpu_ms = check_dispatch(args_gpu, step_kw, kernels,
@@ -1735,6 +1775,7 @@ def spot_leg(device, kernels, cuda_kernels, cons, lam, n_nodes) -> dict:
                         for k in (True, False, None)},
         absorb_dispatches=len(rec.tagged.get("absorb", [])),
         last_absorb=(rec.tagged.get("absorb") or [None])[-1],
+        last_step=rec.last.get("step"), engines=dict(rec.engines),
         compat_launches=launches["compat"],
         compat_expected=rec.expected_compat())
     del env
@@ -1835,14 +1876,10 @@ def spot_phase(cuda_kernels, kernels) -> tuple:
     from karpenter_tpu_torch.ops import consolidate as cons
     from karpenter_tpu_torch.workload import spot_gates
 
-    import os
-
     legs, seconds = {}, {}
-    knob = os.environ.get("KARPENTER_RELAX")
     # the relax rung's default on the card (on) for both paths, so the
     # CPU plain path takes the same rungs
-    os.environ["KARPENTER_RELAX"] = "1"
-    try:
+    with env_knobs(KARPENTER_RELAX="1"):
         for name, want in SPOT_EXPECT.items():
             t0 = time.perf_counter()
             legs[name] = spot_leg(None, kernels, cuda_kernels, cons,
@@ -1856,11 +1893,6 @@ def spot_phase(cuda_kernels, kernels) -> tuple:
         slack = {"card": absorb_slack(None, kernels, cuda_kernels, cons),
                  "cpu": absorb_slack("cpu", kernels, cuda_kernels, cons)}
         seconds["absorb_slack"] = time.perf_counter() - t0
-    finally:
-        if knob is None:
-            os.environ.pop("KARPENTER_RELAX", None)
-        else:
-            os.environ["KARPENTER_RELAX"] = knob
 
     for name, want in SPOT_EXPECT.items():
         got = legs[name]
@@ -1920,7 +1952,10 @@ def spot_phase(cuda_kernels, kernels) -> tuple:
                  "g_mask", "g_has", "g_tol", "t_mask", "t_has", "t_tol")]),
              ("absorb 1xNpB", bins_case(shared, Gp, Np * probe["max_bins"],
                                         kernels))]
-    drop = ("commands", "last_absorb")
+    drop = ("commands", "last_absorb", "last_step")
+    HANDOFF["storm solve"] = blind["last_step"]
+    HANDOFF["storm commands"] = {"risk_aware": aware["commands"],
+                                 "risk_blind": blind["commands"]}
 
     def brief(leg):
         return {k: v for k, v in leg.items() if k not in drop} | {
@@ -1930,10 +1965,10 @@ def spot_phase(cuda_kernels, kernels) -> tuple:
     line = {"spot": {
         "nodes": SPOT_NODES, **SPOT_STORM,
         "reduced": {"nodes": f"{SPOT_NODES_FULL} -> {SPOT_NODES}",
-                    "why": "a G=1 solve on the card takes ~0.1-0.2 s and "
-                           "the storm's solver calls grow with the fleet "
-                           "(1,244 at 100 nodes); 1,000 nodes would "
-                           "outlast the run's time limit"},
+                    "why": "the storm's solver calls grow with the fleet "
+                           "(1,244 at 100 nodes) and at 1,000 nodes each "
+                           "costs the host ~0.14 s even with the ladder "
+                           "on; one leg outlasts the run's time limit"},
         "risk_aware": brief(aware), "risk_blind": brief(blind),
         "risk_aware_cpu": brief(cpu), "absorb_slack": slack,
         "gates": gates, "seconds": seconds,
@@ -1943,6 +1978,391 @@ def spot_phase(cuda_kernels, kernels) -> tuple:
                 + blind["compat_launches"]
                 + slack["card"]["compat_launches"]}
     return line, launches, cases
+
+# ---- the engine ladder and the entry point (the seventh main path) ----
+
+# what the earlier phases hand the engines phase: the numpy-able kernel
+# arguments of their solves and probes, by name, and the pinned storm's
+# commands
+HANDOFF: dict = {}
+# the storm with the ladder at its default gates: the JAX package's
+# counts (ISSUE 6's) and its engines per storm solve on the same storm
+# (with each leg's fleet build, one native solve, 1,049 host loop and 195
+# native; none on the device)
+SPOT_ROUTED_ENGINES = {"risk_aware": {"host": 34, "native": 2},
+                       "risk_blind": {"host": 1015, "native": 191}}
+# the crossover shapes, in the order they are printed, and the engine the
+# gates must pick for each ("device" or a rung off the card)
+CROSSOVER = (("storm solve", "off"), ("operator confirm", "off"),
+             ("gang trial", "off"), ("priority-mix fused", "device"),
+             ("headline", "device"))
+CROSSOVER_PROBE_ROWS = 128
+# the entry point's manifest: one v1 and one v1beta1 NodePool and 64 Pod
+# docs of distinct cpu/memory, 40 replicas each (2,560 pods; 64 groups ×
+# 144 kwok types clears both gates, so the batch takes the card)
+ENTRY_CPUS = (0.25, 0.5, 1, 2, 3, 4, 6, 8)
+ENTRY_MEMS = (0.5, 1, 2, 4, 8, 12, 16, 32)
+ENTRY_REPLICAS = 40
+ENTRY_PODS = len(ENTRY_CPUS) * len(ENTRY_MEMS) * ENTRY_REPLICAS
+ENTRY_ARGS = ("--tick", "0.1", "--max-ticks", "40")
+
+
+class env_knobs:
+    """Set environment knobs for a block and restore them after."""
+
+    def __init__(self, **knobs):
+        self.knobs = knobs
+
+    def __enter__(self):
+        import os
+
+        self.prior = {k: os.environ.get(k) for k in self.knobs}
+        for k, v in self.knobs.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        return self
+
+    def __exit__(self, *exc):
+        import os
+
+        for k, v in self.prior.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+# every phase before the engines phase keeps the device path: routing off,
+# the setting their JAX numbers were taken with
+def pinned():
+    return env_knobs(KARPENTER_NATIVE_CUTOFF="0")
+
+
+def _median_ms(fn, reps: int, sync=None) -> tuple:
+    """(median wall ms over ``reps`` calls, the last call's result)."""
+    times, out = [], None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        if sync is not None:
+            sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), out
+
+
+def _gate(solver, args_np) -> str:
+    """The rung the default gates send a solve of these arguments to:
+    ``host`` (the batch is at most the host cutoff), ``native/<reason>``
+    or ``device``."""
+    from karpenter_tpu_torch.models import solver as msolver
+
+    total = int(np.asarray(args_np["g_count"]).sum())
+    if total <= msolver.HOST_CUTOFF_PODS:
+        return "host"
+    reason = solver._native_reason(args_np)
+    return "device" if reason is None else f"native/{reason}"
+
+
+def crossover(kernels, cuda_kernels) -> dict:
+    """Each crossover solve's kernel arguments through the native engine,
+    the card (``TorchSolver._invoke``: ``solve_step`` and the one host
+    read) and the CPU plain path, with each engine's wall time and the
+    gates' pick; then one probe chunk through ``solve_probe_batch``, the
+    card's ``probe_step`` and the CPU's. The card and the CPU must be
+    bit-equal in every output, and the native engine must give the same
+    feasibility ``F``; its other outputs are compared and recorded."""
+    import torch
+
+    from karpenter_tpu_torch import native
+    from karpenter_tpu_torch.models import TorchSolver
+    from karpenter_tpu_torch.models import solver as msolver
+    from karpenter_tpu_torch.ops import consolidate as cons
+
+    card, cpu = TorchSolver(), TorchSolver(device="cpu")
+    sync = torch.cuda.synchronize
+    rows = []
+    for name, want in CROSSOVER:
+        args_gpu, kw = HANDOFF[name]
+        args_cpu = {k: v.cpu() for k, v in args_gpu.items()}
+        args_np = {k: v.numpy() for k, v in args_cpu.items()}
+        step = (kw["max_bins"], kw.get("level_bits", 20),
+                kw.get("max_minv", 0))
+        big = int(args_gpu["g_demand"].shape[0]) * int(
+            args_gpu["t_mask"].shape[0]) > 1 << 14
+        native_ms, nat = _median_ms(
+            lambda: native.solve_step(args_np, kw["max_bins"]), 5)
+        card_ms, dev = _median_ms(lambda: card._invoke(args_gpu, *step), 5,
+                                  sync)
+        cpu_ms, plain = _median_ms(lambda: cpu._invoke(args_cpu, *step),
+                                   2 if big else 5)
+        for key in ("assign", "assign_e", "used", "tmpl", "F"):
+            check(np.array_equal(dev[key], plain[key]),
+                  f"engines {name}: the card and the CPU differ in {key}")
+        check(np.array_equal(nat["F"], dev["F"]),
+              f"engines {name}: the native engine's feasibility differs")
+        u = dev["used"]
+        same = {key: bool(np.array_equal(nat[key], dev[key]))
+                for key in ("assign", "assign_e", "used", "tmpl")}
+        same["placed_per_group"] = bool(np.array_equal(
+            nat["assign"].sum(1) + nat["assign_e"].sum(1),
+            dev["assign"].sum(1) + dev["assign_e"].sum(1)))
+        same["nodes"] = int(nat["used"].sum()) == int(u.sum())
+        gate = _gate(card, args_np)
+        check((gate == "device") == (want == "device"),
+              f"engines {name}: the gates pick {gate}, want {want}")
+        g_count = args_np["g_count"]
+        rows.append(dict(
+            name=name, G=int((g_count > 0).sum()),
+            Gp=int(g_count.shape[0]), T=int((args_np["t_alloc"].max(1)
+                                            > 0).sum()),
+            Tp=int(args_np["t_alloc"].shape[0]), Bp=kw["max_bins"],
+            pods=int(g_count.sum()), gate=gate, native_ms=native_ms,
+            card_ms=card_ms, cpu_ms=cpu_ms, nodes=int(u.sum()),
+            native_nodes=int(nat["used"].sum()), native_equal=same))
+
+    probe = HANDOFF["probe chunk"]
+    shared, Gp, Ep, e_avail, mm, gk, cols = probe["args"]
+    n = min(CROSSOVER_PROBE_ROWS, int(gk.shape[0]))
+    gk, cols, mb = gk[:n], cols[:n], probe["max_bins"]
+    shared_cpu = {k: v.cpu() for k, v in shared.items()}
+    shared_np = {k: v.numpy() for k, v in shared_cpu.items()}
+    native_ms, nat = _median_ms(
+        lambda: cons.dispatch_counterfactual_rows_native(
+            shared_np, Gp, Ep, e_avail, mm, gk, cols, max_bins=mb), 5)
+    card_ms, dev = _median_ms(
+        lambda: cons.dispatch_counterfactual_rows(
+            shared, Gp, Ep, e_avail, mm, gk, cols, max_bins=mb), 5, sync)
+    cpu_ms, plain = _median_ms(
+        lambda: cons.dispatch_counterfactual_rows(
+            shared_cpu, Gp, Ep, e_avail, mm, gk, cols, max_bins=mb), 3)
+    for label, got in (("native", nat), ("cpu", plain)):
+        for a, b in zip(dev, got):
+            check(a.shape == b.shape and np.array_equal(a, b),
+                  f"engines probe chunk: the card and the {label} rows "
+                  "differ")
+    G = int((shared_np["g_demand"].max(1) > 0).sum())
+    T = int((shared_np["t_alloc"].max(1) > 0).sum())
+    gate = "native" if G * T < msolver.DEVICE_MIN_WORK else "device"
+    rows.append(dict(name="probe chunk", rows=n, Gp=Gp, Ep=Ep, max_bins=mb,
+                     gate=gate, native_ms=native_ms, card_ms=card_ms,
+                     cpu_ms=cpu_ms, native_equal={"placed_g": True,
+                                                  "used": True}))
+    return {"shapes": rows}
+
+
+def routed_storm(kernels, cuda_kernels) -> dict:
+    """The 100-node storm with the ladder at its default gates, both legs
+    on ``TorchSolver()``, ``KARPENTER_RELAX=1``: the JAX package's counts,
+    the three gates, the engine of every solve (none on the card) and the
+    compat launches (0: nothing routed to the card)."""
+    from karpenter_tpu_torch.ops import consolidate as cons
+    from karpenter_tpu_torch.workload import spot_gates
+
+    legs, seconds = {}, {}
+    with env_knobs(KARPENTER_RELAX="1"):
+        for name, want in SPOT_EXPECT.items():
+            t0 = time.perf_counter()
+            legs[name] = spot_leg(None, kernels, cuda_kernels, cons,
+                                  want["lam"], SPOT_NODES)
+            seconds[name] = time.perf_counter() - t0
+    out = {}
+    for name, want in SPOT_EXPECT.items():
+        got = legs[name]
+        seen = {k: got[k] for k in want if k != "lam"}
+        check(seen == {k: v for k, v in want.items() if k != "lam"},
+              f"engines storm {name}: {seen}, want {want}")
+        check(got["engines"] == SPOT_ROUTED_ENGINES[name],
+              f"engines storm {name}: solves by engine {got['engines']}, "
+              f"want {SPOT_ROUTED_ENGINES[name]}")
+        check(got["compat_launches"] == got["compat_expected"],
+              f"engines storm {name}: compat launches "
+              f"{got['compat_launches']} != 2 + Gp per card-routed solve "
+              f"and probe chunk ({got['compat_expected']})")
+        out[name] = dict(
+            {k: got[k] for k in ("notices", "creates", "proactive_drains",
+                                 "deadline_degradations", "end_nodes",
+                                 "pods_bound", "end_cost",
+                                 "pods_lost_with_lead", "solver_calls",
+                                 "solve_ms_total", "solve_ms_median",
+                                 "solve_ms_p90", "solve_steps",
+                                 "probe_dispatches", "storm_s", "engines",
+                                 "compat_launches")},
+            seconds=seconds[name],
+            commands_equal_pinned=(got["commands"]
+                                   == HANDOFF["storm commands"][name]))
+    gates = spot_gates(legs["risk_aware"], legs["risk_blind"], SPOT_NODES)
+    check(gates["cost_beats_blind"] and gates["churn_bound_ok"]
+          and gates["zero_late_drain_ok"], f"engines storm gates: {gates}")
+    out["gates"] = gates
+    return out
+
+
+def write_entry_manifest(path: Path) -> None:
+    pools = [
+        {"apiVersion": "karpenter.sh/v1", "kind": "NodePool",
+         "metadata": {"name": "default"},
+         "spec": {"template": {"spec": {"expireAfter": "720h"}},
+                  "disruption": {
+                      "consolidationPolicy": "WhenEmptyOrUnderutilized",
+                      "budgets": [{"nodes": "10%"}]}}},
+        {"apiVersion": "karpenter.sh/v1beta1", "kind": "NodePool",
+         "metadata": {"name": "legacy"},
+         "spec": {"weight": 10, "disruption": {
+             "consolidationPolicy": "WhenUnderutilized",
+             "expireAfter": "720h"}}},
+    ]
+    pods = [{"kind": "Pod", "name": f"w{i}-{j}", "cpu": c, "memory": m,
+             "replicas": ENTRY_REPLICAS}
+            for i, c in enumerate(ENTRY_CPUS)
+            for j, m in enumerate(ENTRY_MEMS)]
+    path.write_text(json.dumps(pools + pods))
+
+
+def _entry_end(err: str) -> tuple:
+    """(nodes, bound pods) from the operator's last stderr line."""
+    import re
+
+    last = err.strip().splitlines()[-1]
+    m = re.search(r"\((\d+) nodes, (\d+) bound pods\)", last)
+    check(m is not None, f"entry point: no end line in {last!r}")
+    return int(m.group(1)), int(m.group(2))
+
+
+def entry_point(kernels, cuda_kernels, workdir: Path) -> dict:
+    """``python -m karpenter_tpu_torch`` three ways on one manifest: in
+    process with no ``--device`` (the card; the batch must take it, compat
+    2 + Gp per card solve), in process with ``--device cpu`` (every solve
+    native; the same nodes and bound pods), and as a program with
+    ``--metrics``, scraped once (every pod bound)."""
+    import contextlib
+    import io
+    import os
+    import socket
+    import urllib.request
+
+    from karpenter_tpu_torch.__main__ import main as entry_main
+    from karpenter_tpu_torch.ops import consolidate as cons
+
+    manifest = workdir / "entry_manifest.json"
+    write_entry_manifest(manifest)
+    argv = ["--manifest", str(manifest), *ENTRY_ARGS]
+    runs = {}
+    with env_knobs(KARPENTER_BATCH_IDLE_DURATION="0",
+                   KARPENTER_BATCH_MAX_DURATION="0"):
+        for label, extra in (("card", []), ("cpu", ["--device", "cpu"])):
+            err = io.StringIO()
+            with PathRecorder(kernels, cons) as rec:
+                cuda_kernels.reset_launches()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stderr(err):
+                    rc = entry_main(argv + extra)
+                wall_s = time.perf_counter() - t0
+                launches = dict(cuda_kernels.LAUNCHES)
+            check(rc == 0, f"entry point {label}: exit code {rc}")
+            nodes, bound = _entry_end(err.getvalue())
+            runs[label] = dict(
+                wall_s=wall_s, nodes=nodes, bound=bound,
+                solver_calls=rec.solves, engines=dict(rec.engines),
+                solve_ms=rec.solve_ms, solve_steps=rec.steps,
+                step_gp=rec.step_gp, compat_launches=launches["compat"],
+                compat_expected=rec.expected_compat())
+        card, cpu = runs["card"], runs["cpu"]
+        check(card["bound"] == ENTRY_PODS and card["nodes"] > 0,
+              f"entry point card: {card['nodes']} nodes, {card['bound']} "
+              f"of {ENTRY_PODS} pods bound")
+        check(card["engines"].get("cuda", 0) >= 1,
+              f"entry point card: the batch did not take the card: "
+              f"{card['engines']}")
+        check(card["compat_launches"] > 0
+              and card["compat_launches"] == card["compat_expected"],
+              f"entry point card: compat launches {card['compat_launches']}"
+              f" != 2 + Gp per card solve ({card['compat_expected']})")
+        check(set(cpu["engines"]) <= {"native", "host"}
+              and cpu["engines"].get("native", 0) >= 1
+              and cpu["compat_launches"] == 0,
+              f"entry point cpu: solves by engine {cpu['engines']}")
+        check((cpu["nodes"], cpu["bound"]) == (card["nodes"], card["bound"]),
+              f"entry point: the card ends with {card['nodes']} nodes and "
+              f"{card['bound']} pods bound, --device cpu with "
+              f"{cpu['nodes']} and {cpu['bound']}")
+
+        # as a program, with the metrics endpoint on a free port
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        env = dict(os.environ, KARPENTER_METRICS_PORT=str(port),
+                   KARPENTER_METRICS_BIND="127.0.0.1")
+        t0 = time.perf_counter()
+        err_path = workdir / "entry_program.err"
+        with open(err_path, "w") as err_file:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "karpenter_tpu_torch", *argv,
+                 "--metrics"], cwd=Path(__file__).resolve().parent, env=env,
+                stdout=subprocess.DEVNULL, stderr=err_file)
+            try:
+                body = None
+                while body is None and proc.poll() is None:
+                    try:
+                        body = urllib.request.urlopen(
+                            f"http://127.0.0.1:{port}/metrics",
+                            timeout=5).read().decode()
+                    except OSError:
+                        time.sleep(0.2)
+                proc.wait(timeout=600)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        wall_s = time.perf_counter() - t0
+        err = err_path.read_text()
+        check(proc.returncode == 0,
+              f"entry point program: exit code {proc.returncode}: "
+              f"{err[-2000:]}")
+        check(body is not None and "karpenter_" in body,
+              "entry point program: /metrics was never scraped")
+        nodes, bound = _entry_end(err)
+        check(bound == ENTRY_PODS,
+              f"entry point program: {bound} of {ENTRY_PODS} pods bound")
+        runs["program"] = dict(wall_s=wall_s, nodes=nodes, bound=bound,
+                               metrics_bytes=len(body or ""),
+                               last_line=err.strip().splitlines()[-1])
+    runs["pods"] = ENTRY_PODS
+    return runs
+
+
+def engines_phase(kernels, cuda_kernels, workdir: Path) -> tuple:
+    """The engine ladder and the entry point with routing at its default
+    gates: ``(line, launches)``. The native engine must build (g++ is
+    there: ``nvcc`` needs it too)."""
+    from karpenter_tpu_torch import native
+
+    try:
+        gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                             text=True, timeout=60).stdout.splitlines()[0]
+    except (OSError, IndexError):
+        gxx = None
+    check(native.available(), f"engines: the native engine did not build "
+                              f"(g++: {gxx})")
+    seconds = {}
+    with env_knobs(KARPENTER_NATIVE_CUTOFF=None):
+        t0 = time.perf_counter()
+        shapes = crossover(kernels, cuda_kernels)
+        seconds["crossover"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        storm = routed_storm(kernels, cuda_kernels)
+        seconds["storm"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        entry = entry_point(kernels, cuda_kernels, workdir)
+        seconds["entry_point"] = time.perf_counter() - t0
+    line = {"engines": {"gxx": gxx, "native_library": str(native.lib_path()),
+                        "crossover": shapes, "storm": storm,
+                        "entry_point": entry, "seconds": seconds}}
+    launches = {"compat": storm["risk_aware"]["compat_launches"]
+                + storm["risk_blind"]["compat_launches"]
+                + entry["card"]["compat_launches"]}
+    return line, launches
 
 
 def main() -> int:
@@ -1976,6 +2396,9 @@ def main() -> int:
     print(f"build: {build_s:.3f} s", flush=True)
 
     # ---- the main path: the headline burst on the card ----
+    # every phase up to spot keeps the device path (routing off)
+    pin = pinned().__enter__()
+    t_headline = time.perf_counter()
     pods, templates, its = build_workload(N_PODS, N_TYPES)
     solver = TorchSolver()
     check(solver.device.type == "cuda", "TorchSolver() did not pick cuda")
@@ -2023,6 +2446,7 @@ def main() -> int:
     args_gpu = kernels.from_kernel_args(args_np, dev)
     step_kw = dict(max_bins=Bp, with_existing=False,
                    level_bits=plan["level_bits"], max_minv=plan["max_minv"])
+    HANDOFF["headline"] = (args_gpu, step_kw)
     _, cpu_step_ms = check_dispatch(args_gpu, step_kw, kernels, "headline")
     gpu_step_ms = time_ms(lambda: kernels.solve_step(args_gpu, **step_kw),
                           reps=5, inner=2)
@@ -2045,9 +2469,13 @@ def main() -> int:
     check(res_cpu.node_count() == res.node_count(),
           f"node count cuda {res.node_count()} != cpu {res_cpu.node_count()}")
 
+    headline_s = time.perf_counter() - t_headline
+
     # ---- the second main path: the live round on the headline's cluster ----
+    t0 = time.perf_counter()
     live_line, live_cases, live_launches, live_trace = live_round_phase(
         res.new_claims, templates, its, cuda_kernels, kernels)
+    live_line["live_round"]["phase_s"] = time.perf_counter() - t0
 
     # ---- the third main path: the consolidation probe ----
     t0 = time.perf_counter()
@@ -2070,6 +2498,16 @@ def main() -> int:
     t0 = time.perf_counter()
     spot_line, spot_launches, spot_cases = spot_phase(cuda_kernels, kernels)
     spot_line["spot"]["phase_s"] = time.perf_counter() - t0
+    pin.__exit__(None, None, None)
+
+    # ---- the seventh main path: the engine ladder and the entry point ----
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        eng_line, eng_launches = engines_phase(kernels, cuda_kernels,
+                                               Path(workdir))
+    eng_line["engines"]["phase_s"] = time.perf_counter() - t0
 
     # ---- every kernel against its plain version, on the card ----
     _, K, W = args_gpu["g_mask"].shape
@@ -2113,13 +2551,15 @@ def main() -> int:
         "replaces": "karpenter_tpu/ops/pallas_kernels.py:62",
         "launches": (launches["compat"] + live_launches["compat"]
                      + cons_launches["compat"] + op_launches["compat"]
-                     + adm_launches["compat"] + spot_launches["compat"]),
+                     + adm_launches["compat"] + spot_launches["compat"]
+                     + eng_launches["compat"]),
         "launches_by_path": {"headline": launches["compat"],
                              "live_round": live_launches["compat"],
                              "consolidation": cons_launches["compat"],
                              "operator": op_launches["compat"],
                              "admission": adm_launches["compat"],
-                             "spot": spot_launches["compat"]},
+                             "spot": spot_launches["compat"],
+                             "engines": eng_launches["compat"]},
         "max_abs_err": 0 if mismatches == 0 else 1,
         "tolerance": "exact (one bool per cell)",
         "mismatches": mismatches,
@@ -2154,7 +2594,7 @@ def main() -> int:
         "lp_floor": stats["floor"], "lp_led": stats["lp_led"],
         "lp_lb": float(lb), "lp_iters": floor_iters,
         "lp_floor_trace": floor_trace,
-        "build_s": build_s,
+        "build_s": build_s, "phase_s": headline_s,
     }}
     print(json.dumps(kernels_line))
     live_line["live_round"]["script_s"] = time.perf_counter() - t_script
@@ -2164,11 +2604,78 @@ def main() -> int:
     print(json.dumps(op_line))
     print(json.dumps(adm_line))
     print(json.dumps(spot_line))
+    print(json.dumps(eng_line))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
 
 
+def full_storm(n_nodes: int) -> int:
+    """``python3 chip_smoke.py --full-storm [N]``: the storm at
+    ``perf/run.py``'s size (``spot_storm(N)``, N 1,000 by default) with
+    the engine ladder at its default gates, both legs on ``TorchSolver()``
+    with ``KARPENTER_RELAX=1``, outside the smoke run (it outlasts its
+    time limit). Prints the time and solver calls at each round's start,
+    each leg's counts, engines and times, then the three gates."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from karpenter_tpu_torch.cloudprovider import chaos
+    from karpenter_tpu_torch.models import TorchSolver
+    from karpenter_tpu_torch.ops import consolidate as cons
+    from karpenter_tpu_torch.ops import cuda_kernels, kernels
+    from karpenter_tpu_torch.workload import spot_gates
+
+    print("card:", card_line(), flush=True)
+    cuda_kernels.build()
+    calls = {"n": 0, "ms": 0.0}
+    real_solve = TorchSolver.solve
+
+    def solve(self, *a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real_solve(self, *a, **kw)
+        finally:
+            calls["n"] += 1
+            calls["ms"] += (time.perf_counter() - t0) * 1e3
+
+    real_storm = chaos.ChaosCloud.notice_storm
+    t_leg = [0.0]
+
+    def notice_storm(self, *a, **kw):
+        print(f"  round start t={time.perf_counter() - t_leg[0]:.1f}s "
+              f"solves={calls['n']} solve_s={calls['ms'] / 1e3:.1f}",
+              flush=True)
+        return real_storm(self, *a, **kw)
+
+    TorchSolver.solve = solve
+    chaos.ChaosCloud.notice_storm = notice_storm
+    legs = {}
+    t_all = time.perf_counter()
+    with env_knobs(KARPENTER_RELAX="1"):
+        for name in ("risk_aware", "risk_blind"):
+            t_leg[0] = time.perf_counter()
+            calls.update(n=0, ms=0.0)
+            print(name, "start", flush=True)
+            leg = spot_leg(None, kernels, cuda_kernels, cons,
+                           SPOT_EXPECT[name]["lam"], n_nodes)
+            legs[name] = leg
+            out = {k: v for k, v in leg.items()
+                   if k not in ("commands", "last_absorb", "last_step")}
+            out["seconds"] = time.perf_counter() - t_leg[0]
+            print(json.dumps({name: out}), flush=True)
+    print(json.dumps({"gates": spot_gates(legs["risk_aware"],
+                                          legs["risk_blind"], n_nodes),
+                      "total_s": time.perf_counter() - t_all}), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--full-storm"]:
+        sys.exit(full_storm(int(sys.argv[2]) if len(sys.argv) > 2
+                            else SPOT_NODES_FULL))
     sys.exit(main())

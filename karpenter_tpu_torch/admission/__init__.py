@@ -31,7 +31,7 @@ is held against.
 
 The port's copy of ``karpenter_tpu/admission/`` (imports changed; the
 decision-ledger sites and replay captures are left out, ROADMAP.md
-Queue 1 items 2 and 3).
+Queue 1 items 1 and 2).
 """
 
 from karpenter_tpu_torch.admission.plane import AdmissionPlane  # noqa: F401

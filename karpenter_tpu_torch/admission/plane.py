@@ -45,7 +45,7 @@ probe marks feasible, as in the JAX package. Where the JAX
 package catches every exception of a gang trial or a probe, the port lets
 a device fault (``ops.cuda_kernels.DEVICE_FAULTS``) propagate and falls
 back on anything else. Left out: the decision-ledger verdicts and the
-flight-recorder spans (ROADMAP.md Queue 1 item 2); the round's ``report``
+flight-recorder spans (ROADMAP.md Queue 1 item 1); the round's ``report``
 carries its counts.
 """
 

@@ -38,7 +38,7 @@ package's "return None when ``import jax`` fails" is gone: an
 inexpressible scenario still returns None, and a device fault
 propagates. Left out: the flight-recorder
 span and the replay capture on the ``preempt.dispatch`` seam (ROADMAP.md
-Queue 1 items 2 and 3).
+Queue 1 items 1 and 2).
 """
 
 from __future__ import annotations

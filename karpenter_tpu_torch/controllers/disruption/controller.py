@@ -14,7 +14,7 @@ The port's copy of ``karpenter_tpu/controllers/disruption/controller.py``
 ``TPUSolver``). ``InterruptionDrain`` runs first in the ring and the
 cloud provider's interruption notices are pulled on every poll. Left out:
 ``_observe_fleet_cost`` and the command's fleet-ledger entry
-(``obs.timeline``, ROADMAP.md Queue 1 item 2), and the flight-recorder
+(``obs.timeline``, ROADMAP.md Queue 1 item 1), and the flight-recorder
 spans. A snapshot prewarm that hits a device fault propagates, as the
 probes do (``ops.cuda_kernels.DEVICE_FAULTS``); any other failure falls back and
 is counted in ``DISRUPTION_PROBE_FAILURES`` (method ``prewarm``).

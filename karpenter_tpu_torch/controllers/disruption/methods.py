@@ -13,7 +13,7 @@ The port's copy of ``karpenter_tpu/controllers/disruption/methods.py``
 (imports changed; ``TorchSolver`` where the JAX package tests for
 ``TPUSolver``). Left out: the flight-recorder spans, anomalies and
 decision-ledger verdicts, and the capsule seams (ROADMAP.md Queue 1 items
-2 and 3) — each method keeps its rung and reason on itself instead
+1 and 2) — each method keeps its rung and reason on itself instead
 (``last_rung``/``last_reason``, ``last_probe``/``last_probe_reason``).
 
 A device probe's own inexpressible shapes fall back to the sequential

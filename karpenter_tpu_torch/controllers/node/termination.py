@@ -21,7 +21,7 @@ sequential per-pod evictions in the same order. The wave feeds the module
 
 The port's copy of ``karpenter_tpu/controllers/node/termination.py``
 (imports changed), without the flight-recorder spans and the fleet
-ledger's evict/retire events (ROADMAP.md Queue 1 item 2).
+ledger's evict/retire events (ROADMAP.md Queue 1 item 1).
 """
 
 from __future__ import annotations

@@ -12,7 +12,7 @@ deletion the finalizer tears down the cloud instance then the node.
 
 The port's copy of ``karpenter_tpu/controllers/nodeclaim/lifecycle.py``
 (imports changed), without the fleet ledger's launch and registration
-events (ROADMAP.md Queue 1 item 2).
+events (ROADMAP.md Queue 1 item 1).
 """
 
 from __future__ import annotations

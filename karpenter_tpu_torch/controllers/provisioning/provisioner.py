@@ -14,7 +14,7 @@ batch carrying an admission marker (a pod priority or class, a gang
 annotation, a non-zero global-default PriorityClass) goes through the
 port's admission plane (``karpenter_tpu_torch.admission``), as in the
 JAX package. Left out: the flight-recorder spans and anomalies
-(ROADMAP.md Queue 1 item 2).
+(ROADMAP.md Queue 1 item 1).
 """
 
 from __future__ import annotations
@@ -143,9 +143,9 @@ class Provisioner:
         self.clock = clock or Clock()
         self.registry = registry or m.REGISTRY
         if solver is None:
-            from karpenter_tpu_torch.models.solver import TorchSolver
+            from karpenter_tpu_torch.models.solver import make_solver
 
-            solver = TorchSolver()
+            solver = make_solver()
         self.solver = solver
         # production default: the reference's 1s idle / 10s max debounce
         # window (options.go:96-97); test environments inject a 0/0 batcher

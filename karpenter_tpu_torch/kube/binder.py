@@ -9,7 +9,7 @@ the binder cannot place get the Unschedulable condition the provisioner
 watches for.
 
 The port's copy of ``karpenter_tpu/kube/binder.py`` (imports changed),
-without the flight-recorder spans (ROADMAP.md Queue 1 item 2).
+without the flight-recorder spans (ROADMAP.md Queue 1 item 1).
 """
 
 from __future__ import annotations

@@ -26,18 +26,35 @@ snapshot (``DisruptionSnapshot.derive_esnap``) instead of re-tensorized.
 
 ``tier_of=`` (the fused admission round, ``admission/plane.py``) splits
 the signature groups by priority tier and orders the scan tier-major, as
-the JAX package does; the waves path ignores it. Not in this slice (see
-ROADMAP.md): the native C++ rung, the small-batch host cutoff, the mesh,
-replay capsules and the decision ledger.
+the JAX package does; the waves path ignores it.
+
+The engine ladder (``TPUSolver``'s routing by size): a batch of at most
+``HOST_CUTOFF_PODS`` pods runs the host FFD loop without tensorizing; a
+dispatch of at most ``NATIVE_CUTOFF_PODS`` pods, or with fewer than
+``DEVICE_MIN_WORK`` real group×type cells, or on a solver whose device is
+not an accelerator, runs the native C++ engine (``karpenter_tpu_torch/
+native``) on the numpy arguments and never uploads them; the rest goes to
+the device. ``KARPENTER_NATIVE_CUTOFF=0`` turns all routing off,
+``KARPENTER_HOST_CUTOFF`` and ``KARPENTER_DEVICE_MIN_WORK`` move the other
+two gates, and ``KARPENTER_ASSUME_ACCELERATOR`` overrides the device test.
+``last_device_stats`` records the ``engine`` that ran (``"host"``,
+``"native"`` or the device type) and the ``route`` (rung, reason) — the
+stand-in for the JAX package's decision ledger. ``NativeSolver`` always
+runs the native engine; ``make_solver`` picks the default solver.
+
+Not in this slice (see ROADMAP.md): the mesh, the speculative doubled
+dispatch (``_invoke_spec``), replay capsules and the decision ledger.
 """
 
 from __future__ import annotations
 
+import logging
 import time
 
 import numpy as np
 import torch
 
+from karpenter_tpu_torch import native
 from karpenter_tpu_torch.api import labels as wk
 from karpenter_tpu_torch.models.inflight import InFlightNodeClaim
 from karpenter_tpu_torch.models.scheduler import (
@@ -61,6 +78,34 @@ from karpenter_tpu_torch.ops.tensorize import (
     tensorize_existing,
 )
 from karpenter_tpu_torch.utils import resources as resutil
+from karpenter_tpu_torch.utils.envknobs import env_int, env_str
+
+# The JAX package's cutoffs (karpenter_tpu/models/solver.py), kept as they
+# are: pods per solve at or below which the native engine runs instead of
+# the device (0 turns ALL routing off); pods per batch at or below which
+# the host FFD loop runs without tensorizing; real group×type cells below
+# which a batch is a short sequential loop the native engine finishes
+# first (0 turns this gate off).
+NATIVE_CUTOFF_PODS = 192
+HOST_CUTOFF_PODS = 8
+DEVICE_MIN_WORK = 8192
+
+
+def _native_cutoff() -> int:
+    """The routing master switch: 0 turns ALL engine routing off (the
+    parity tests pin this to keep the device path under test)."""
+    return env_int("KARPENTER_NATIVE_CUTOFF", NATIVE_CUTOFF_PODS)
+
+
+def _accelerated(device: torch.device) -> bool:
+    """Whether ``device`` is an accelerator (CUDA): on the CPU the plain
+    PyTorch path only emulates the device kernel and the native engine
+    wins at every size. ``KARPENTER_ASSUME_ACCELERATOR`` (1/0) overrides
+    the test."""
+    v = env_str("KARPENTER_ASSUME_ACCELERATOR")
+    if v is not None:
+        return v.strip().lower() in ("1", "true", "yes", "on")
+    return device.type == "cuda"
 
 
 class Solver:
@@ -73,7 +118,9 @@ class HostSolver(Solver):
 
     def solve(self, pods, templates, instance_types, topology=None,
               existing_nodes=(), daemon_overhead=None, limits=None,
-              initial_claims=(), volume_topology=None) -> SchedulerResults:
+              initial_claims=(), volume_topology=None,
+              existing_base=None) -> SchedulerResults:
+        # existing_base is a tensor-derivation hint; the host loop has none
         sched = Scheduler(
             templates,
             instance_types,
@@ -87,10 +134,10 @@ class HostSolver(Solver):
         return sched.solve(pods)
 
 
-def _host_stats(pods, host_routed, **stages) -> dict:
+def _host_stats(pods, host_routed, reason, **stages) -> dict:
     return dict(groups=0, types=0, device_pods=0, retry_pods=0,
                 host_pods=len(pods), existing_pods=0, engine="host",
-                host_routed=host_routed, **stages)
+                route=("host", reason), host_routed=host_routed, **stages)
 
 
 class TorchSolver(Solver):
@@ -113,9 +160,13 @@ class TorchSolver(Solver):
         has_topology = bool(getattr(
             topology, "has_groups",
             topology is not None and not isinstance(topology, NullTopology)))
-        if not templates:
+        host_cutoff = 0
+        if _native_cutoff() > 0:
+            host_cutoff = env_int("KARPENTER_HOST_CUTOFF", HOST_CUTOFF_PODS)
+        if not templates or 0 < len(pods) <= host_cutoff:
+            reason = "small-batch" if templates else "no-templates"
             self.last_device_stats = _host_stats(
-                pods, {"no-templates": len(pods)} if pods else {})
+                pods, {reason: len(pods)} if pods else {}, reason)
             return self.host.solve(
                 pods, templates, instance_types, topology=topology,
                 existing_nodes=existing_nodes, daemon_overhead=daemon_overhead,
@@ -147,7 +198,8 @@ class TorchSolver(Solver):
                 host_routed[reason] = host_routed.get(reason, 0) + n
             device_groups = plan.device_groups
             if not device_groups:
-                self.last_device_stats = _host_stats(pods, host_routed, **stages)
+                self.last_device_stats = _host_stats(
+                    pods, host_routed, "no-device-groups", **stages)
                 return self.host.solve(
                     pods, templates, instance_types, topology=topology,
                     existing_nodes=existing_nodes,
@@ -170,7 +222,8 @@ class TorchSolver(Solver):
                 (eligible if ok else rest).append(p)
             host_routed = {"ineligible-spec": len(rest)} if rest else {}
             if not eligible:
-                self.last_device_stats = _host_stats(pods, host_routed)
+                self.last_device_stats = _host_stats(pods, host_routed,
+                                                     "no-eligible")
                 return self.host.solve(
                     pods, templates, instance_types,
                     existing_nodes=existing_nodes,
@@ -205,7 +258,8 @@ class TorchSolver(Solver):
             retry_pods=len(retry),
             host_pods=len(rest),
             existing_pods=sum(len(e[1]) for e in ecommits),
-            engine=self.device.type,
+            engine=self._engine,
+            route=self._route,
             host_routed=host_routed,
             group_row_cache_hits=_TZ_STATS["group_row_hits"] - rows0[0],
             group_row_cache_misses=_TZ_STATS["group_row_misses"] - rows0[1],
@@ -335,20 +389,32 @@ class TorchSolver(Solver):
         """Estimate the bin axis, dispatch, decode; while the estimated
         axis runs dry and pods are left over, re-run with a doubled axis
         (exact, just slower) rather than spill to the host loop. Gates on
-        the kernel's own bin usage, not post-validation claim count."""
+        the kernel's own bin usage, not post-validation claim count. Each
+        dispatch, the re-run included, goes through the engine gates on
+        the numpy arguments; the device copy is made at the first
+        dispatch that takes the device."""
         G, T = snap.G, snap.T
         p = self.plan(snap, max_bins, esnap)
         B, Bp, E = p["B"], p["Bp"], p["E"]
         stages["lp_led"] = p["lp_led"]
         stages["floor"] = p["floor"]
-        args = kernels.from_kernel_args(
-            kernel_args(snap, esnap, Gp=p["Gp"], Tp=p["Tp"], Ep=p["Ep"]),
-            self.device)
+        args_np = kernel_args(snap, esnap, Gp=p["Gp"], Tp=p["Tp"], Ep=p["Ep"])
+        args = None
         compat_cache: dict = {}
         bin_cap = min(p["total_pods"], 4096)
         while True:
             t0 = time.perf_counter()
-            host = self._invoke(args, Bp, p["level_bits"], p["max_minv"])
+            host = None
+            reason = self._native_reason(args_np)
+            if reason is not None:
+                host = self._invoke_native(args_np, Bp, reason)
+            if host is None:
+                if args is None:
+                    args = kernels.from_kernel_args(args_np, self.device)
+                # engine and (rung, reason) of this dispatch, for the stats
+                self._engine = self.device.type
+                self._route = ("device", "ok")
+                host = self._invoke(args, Bp, p["level_bits"], p["max_minv"])
             stages["solve_ms"] = stages.get("solve_ms", 0.0) + (
                 time.perf_counter() - t0) * 1000.0
             used = host["used"]
@@ -365,8 +431,51 @@ class TorchSolver(Solver):
                 B = min(2 * B, 4096)
                 Bp = _bucket(B)
                 continue
+            if p["lp_led"] and claims and not retry:
+                # the LP floor sized a solve that completed whole: the
+                # relax rung, as the JAX package's route records it
+                self._route = ("relax", "ok")
             stages.update(bins=Bp, B=B, Gp=p["Gp"], Ep=p["Ep"])
             return claims, retry, ecommits
+
+    def _native_reason(self, args_np) -> str | None:
+        """The gate of one dispatch, decided on the numpy arguments: the
+        reason it goes to the native engine (``small-batch``,
+        ``work-floor``, ``cpu-backend``), or None for the device. Counts
+        REAL groups and types (padded groups count 0 pods and padded types
+        have no allocatable), so routing flips at the calibrated work,
+        not at shape-bucket boundaries."""
+        cutoff = _native_cutoff()
+        g_count = np.asarray(args_np["g_count"])
+        total = int(g_count.sum())
+        if cutoff <= 0 or total <= 0:
+            return None
+        min_work = env_int("KARPENTER_DEVICE_MIN_WORK", DEVICE_MIN_WORK)
+        work = int((g_count > 0).sum()) * int(
+            (np.asarray(args_np["t_alloc"]).max(axis=1) > 0).sum())
+        if total <= cutoff:
+            reason = "small-batch"
+        elif work < min_work:
+            reason = "work-floor"
+        elif not _accelerated(self.device):
+            reason = "cpu-backend"
+        else:
+            return None
+        return reason if native.available() else None
+
+    def _invoke_native(self, args_np, max_bins, reason):
+        """One dispatch on the native engine; None when the engine fails,
+        which is logged, and the dispatch then takes the device."""
+        try:
+            out = native.solve_step(args_np, max_bins)
+        except (RuntimeError, ValueError):
+            logging.getLogger(__name__).warning(
+                "native engine failed on a routed batch; falling back to "
+                "the device kernel", exc_info=True)
+            return None
+        self._engine = "native"
+        self._route = ("native", reason)
+        return out
 
     def _invoke(self, args, max_bins, level_bits, max_minv):
         """One device dispatch: solve_step with every output flattened into
@@ -708,3 +817,31 @@ class TorchSolver(Solver):
         for g in range(snap.G):
             retry.extend(snap.groups[g][cursors[g] :])
         return claims, retry, ecommits
+
+
+class NativeSolver(TorchSolver):
+    """The same tensorize → kernel → decode pipeline with the native C++
+    engine in place of the device kernel for every solve dispatch. Its
+    ``device`` runs the rest — the LP floor, the disruption bundle and
+    probes above the work floor — and follows ``TorchSolver``'s rule:
+    None means CUDA and raises without it; pass ``device="cpu"``."""
+
+    def _native_reason(self, args_np) -> str:
+        return "ok"
+
+    def _invoke_native(self, args_np, max_bins, reason):
+        self._engine = "native"
+        self._route = ("native", reason)
+        return native.solve_step(args_np, max_bins)
+
+
+def make_solver(prefer_device: bool = True) -> Solver:
+    """The default solver: ``TorchSolver()`` on the card (it raises without
+    one — the port never drops to the host on its own); with
+    ``prefer_device=False`` the native engine on the CPU, or the host FFD
+    loop when there is no g++."""
+    if prefer_device:
+        return TorchSolver()
+    if native.available():
+        return NativeSolver(device="cpu")
+    return HostSolver()

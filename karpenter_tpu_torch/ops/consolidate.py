@@ -48,12 +48,19 @@ journal (``DisruptionSnapshot.advance``) instead of rebuilding it;
 probes of the same generation, and ``DISPATCHES_BY_GEN`` counts the probe
 dispatches of each generation (the contract is at most one).
 
-Left out (later slices, ROADMAP.md Queue 1): the native probe rung and
-replay capture.
+The native rung: under the solver's gates (``models/solver.py``: the
+``KARPENTER_NATIVE_CUTOFF`` master switch and the ``DEVICE_MIN_WORK``
+floor on the snapshot's G×T), rows go to the native engine's batched
+probe entry (``native.solve_probe_batch``) in chunks of
+``NATIVE_PROBE_CHUNK_ROWS``, on the numpy snapshot, as in the JAX
+package; a native failure is logged and the rows take the device.
+
+Left out (a later slice, ROADMAP.md Queue 1): replay capture.
 """
 
 from __future__ import annotations
 
+import logging
 import math
 import time
 from collections import OrderedDict
@@ -61,6 +68,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from karpenter_tpu_torch import native
 from karpenter_tpu_torch.ops import kernels
 from karpenter_tpu_torch.ops.tensorize import (
     ExistingSnapshot,
@@ -68,6 +76,7 @@ from karpenter_tpu_torch.ops.tensorize import (
     group_by_signature,
     interned_signature,
     kernel_args,
+    pad_to as pad,
     tensorize,
     tensorize_existing,
 )
@@ -75,6 +84,11 @@ from karpenter_tpu_torch.utils.envknobs import env_bool, env_float, env_int
 
 # counterfactual rows per probe_step call (the JAX package's chunk)
 PROBE_CHUNK_ROWS = 128
+# counterfactual rows per native probe call (the JAX package's): the
+# engine builds feasibility once per chunk, and only the chunk's
+# [rows, E, R] availability is materialized; rows are independent, so the
+# chunk size never changes an answer
+NATIVE_PROBE_CHUNK_ROWS = 1024
 
 
 def _pow2(n: int, lo: int = 8) -> int:
@@ -165,6 +179,7 @@ class DisruptionSnapshot:
         avail_prices = snap.off_price[snap.off_avail]
         self.min_price = float(avail_prices.min()) if avail_prices.size else float("inf")
         self._shared = None
+        self._shared_np = None
         self._dims = None
         self._claimable = None
         # per existing-node row, the reschedulable-pod contribution over
@@ -443,7 +458,8 @@ class DisruptionSnapshot:
         ]
         self.base = self._with_deleting(base)
         self.generation = generation
-        self._shared = None  # the padded-arg cache carries esnap rows
+        # the padded-arg caches carry esnap rows
+        self._shared = self._shared_np = None
         return True
 
     # -- simulation fast path (the confirming simulation's inputs) -------
@@ -506,33 +522,69 @@ class DisruptionSnapshot:
             e_aff=base.e_aff[rows],
         )
 
-    def _shared_args(self):
-        """The shared snapshot as tensors on the bundle's device, padded on
-        the pure power-of-two ladder, and ``(Gp, Ep)``."""
-        if self._shared is None:
+    def _shared_host(self):
+        """The shared snapshot as the numpy ``kernel_args(...,
+        include_counts=False)``, padded on the pure power-of-two ladder,
+        and ``(Gp, Ep)``."""
+        if self._shared_np is None:
             Gp = _pow2(self.snap.G)
             Ep = _pow2(self.esnap.E)
             Tp = _pow2(self.snap.T)
-            self._shared = kernels.from_kernel_args(
-                kernel_args(self.snap, self.esnap, Gp=Gp, Tp=Tp, Ep=Ep,
-                            include_counts=False),
-                self.device)
+            self._shared_np = kernel_args(self.snap, self.esnap, Gp=Gp, Tp=Tp,
+                                          Ep=Ep, include_counts=False)
             self._dims = (Gp, Ep)
+        return self._shared_np, self._dims
+
+    def _shared_args(self):
+        """The shared snapshot as tensors on the bundle's device, and
+        ``(Gp, Ep)``."""
+        if self._shared is None:
+            shared_np, _ = self._shared_host()
+            self._shared = kernels.from_kernel_args(shared_np, self.device)
         return self._shared, self._dims
 
     def dispatch(self, g_count_k, e_zero_cols, max_bins=1):
-        """Run the row-batched pack over the counterfactual rows on the
-        bundle's device; returns (placed_g [rows, Gp], used [rows]) as
-        int64 numpy. ``max_bins`` caps the fresh claims a row may open
-        (1 is the reference's m→1 rule). ``e_zero_cols[i]`` holds the
-        existing-node columns row i removes."""
+        """Run the row-batched pack over the counterfactual rows; returns
+        (placed_g [rows, Gp], used [rows]) as int64 numpy. ``max_bins``
+        caps the fresh claims a row may open (1 is the reference's m→1
+        rule). ``e_zero_cols[i]`` holds the existing-node columns row i
+        removes. A snapshot under the solver's work floor runs on the
+        native engine (``_native_routable``), the rest on the bundle's
+        device."""
         # per-generation invocation accounting: the short-circuit contract
         # (one probe dispatch per generation) is read off this log
         note_probe_dispatch(self.generation)
+        if self._native_routable():
+            shared, (Gp, Ep) = self._shared_host()
+            try:
+                return dispatch_counterfactual_rows_native(
+                    shared, Gp, Ep, self.esnap.e_avail, self.max_minv,
+                    g_count_k, e_zero_cols, max_bins=max_bins)
+            except (RuntimeError, ValueError):
+                logging.getLogger(__name__).warning(
+                    "native probe dispatch failed; using the device kernel",
+                    exc_info=True)
         shared, (Gp, Ep) = self._shared_args()
         return dispatch_counterfactual_rows(
             shared, Gp, Ep, self.esnap.e_avail, self.max_minv,
             g_count_k, e_zero_cols, max_bins=max_bins)
+
+    def _native_routable(self) -> bool:
+        """The solver's engine gates applied to the probe: the same
+        ``KARPENTER_NATIVE_CUTOFF`` master switch (0 turns routing off)
+        and the same feasibility-work floor — a probe row's parallelism is
+        G×T, and below the floor the device cannot amortize its launches."""
+        from karpenter_tpu_torch.models.solver import (
+            DEVICE_MIN_WORK,
+            _native_cutoff,
+        )
+
+        if _native_cutoff() <= 0:
+            return False
+        min_work = env_int("KARPENTER_DEVICE_MIN_WORK", DEVICE_MIN_WORK)
+        if self.snap.G * self.snap.T >= min_work:
+            return False
+        return native.available()
 
 
 def chunk_rows(e_master, g_count_k, e_zero_cols, e_free, lo, hi, Gp):
@@ -607,6 +659,43 @@ def dispatch_counterfactual_rows(shared, Gp, Ep, e_avail, max_minv,
         host = torch.cat([out_placed[:n].ravel(), out_used[:n]]).cpu().numpy()
         placed_g[lo:hi] = host[:n * Gp].reshape(n, Gp)
         used[lo:hi] = host[n * Gp:]
+    return placed_g, used
+
+
+def dispatch_counterfactual_rows_native(shared, Gp, Ep, e_avail, max_minv,
+                                        g_count_k, e_zero_cols, e_free=None,
+                                        max_bins=1):
+    """The native-engine half of :func:`dispatch_counterfactual_rows` over
+    the numpy ``shared`` snapshot: chunks of ``NATIVE_PROBE_CHUNK_ROWS``,
+    each row's ``e_avail`` the master with its columns zeroed, then its
+    ``e_free`` release added, one ``native.solve_probe_batch`` per chunk.
+    ``max_minv`` rides for symmetry (the engine reads ``m_minv`` from the
+    arguments). Returns ``(placed_g [rows, Gp], used [rows])`` as int64
+    numpy."""
+    R = e_avail.shape[1]
+    rows = g_count_k.shape[0]
+    placed_g = np.empty((rows, Gp), dtype=np.int64)
+    used = np.empty(rows, dtype=np.int64)
+    for lo in range(0, rows, NATIVE_PROBE_CHUNK_ROWS):
+        hi = min(lo + NATIVE_PROBE_CHUNK_ROWS, rows)
+        n = hi - lo
+        e_chunk = np.repeat(e_avail[None, :, :], n, axis=0)
+        for i in range(n):
+            cols = e_zero_cols[lo + i]
+            if cols is not None and len(cols):
+                e_chunk[i, cols, :] = 0.0
+            fr = e_free[lo + i] if e_free is not None else None
+            if fr is not None:
+                e_chunk[i, int(fr[0]), :] += np.asarray(
+                    fr[1], dtype=e_chunk.dtype)
+        pg, u = native.solve_probe_batch(
+            shared,
+            pad(np.asarray(g_count_k[lo:hi], dtype=np.int32), (n, Gp)),
+            pad(e_chunk.astype(np.float32, copy=False), (n, Ep, R)),
+            max_bins,
+        )
+        placed_g[lo:hi] = pg
+        used[lo:hi] = u
     return placed_g, used
 
 

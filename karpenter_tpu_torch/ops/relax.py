@@ -105,11 +105,15 @@ RELAX_STATS = {
 
 def relax_enabled(device=None) -> bool:
     """Tri-state enable: KARPENTER_RELAX=1 forces the floor on, =0 kills
-    it, unset/empty turns it on exactly when ``device`` is a CUDA device."""
+    it, unset/empty turns it on exactly when ``device`` is an accelerator
+    (a CUDA device, or as ``KARPENTER_ASSUME_ACCELERATOR`` says — the
+    solver's own test, ``models/solver.py _accelerated``)."""
     v = (env_str("KARPENTER_RELAX") or "").strip().lower()
     if v:
         return v not in ("0", "false", "off", "no")
-    return device is not None and torch.device(device).type == "cuda"
+    from karpenter_tpu_torch.models.solver import _accelerated
+
+    return device is not None and _accelerated(torch.device(device))
 
 
 def _relax_max_iters() -> int:

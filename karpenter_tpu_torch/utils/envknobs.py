@@ -5,7 +5,11 @@ reduced to what the port reads: the float knobs of
 of ``state/cluster.py``, and the consolidation probe's knobs in
 ``ops/consolidate.py``: ``KARPENTER_REPLACE_MAX_CLAIMS``,
 ``KARPENTER_GLOBAL_REPAIR_MAX``, ``KARPENTER_TIER_WEIGHT`` and
-``KARPENTER_GLOBAL_FORMULATE_LOOP``)."""
+``KARPENTER_GLOBAL_FORMULATE_LOOP``; the engine ladder's gates in
+``models/solver.py``: ``KARPENTER_NATIVE_CUTOFF``,
+``KARPENTER_HOST_CUTOFF``, ``KARPENTER_DEVICE_MIN_WORK`` and
+``KARPENTER_ASSUME_ACCELERATOR``; ``KARPENTER_NATIVE_CACHE`` in
+``native/``)."""
 
 from __future__ import annotations
 

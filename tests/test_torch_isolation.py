@@ -9,10 +9,14 @@
   imports inside functions count too).
 - ``TorchSolver()`` with no device, and an ``Environment()`` with no
   solver, raise when CUDA is absent instead of dropping to the CPU.
+- A solve routed to the native engine, and a probe routed to its batched
+  entry, map the port's own library (built under ``build/``) and never
+  the JAX package's ``libkarpenter_kernel.so``.
 """
 
 import ast
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -53,6 +57,39 @@ print(json.dumps({"new": sorted(loaded() - before),
                   "bound": sum(1 for p in env.store.list("pods")
                                if p.node_name)}))
 """
+
+
+_NATIVE_SCRIPT = r"""
+import json, os
+from karpenter_tpu_torch import native
+from karpenter_tpu_torch.models import TorchSolver
+from karpenter_tpu_torch.ops.consolidate import joint_retirement_plan
+from karpenter_tpu_torch.workload import build_workload, underutilized_fleet
+pods, templates, its = build_workload(300, 60)
+solver = TorchSolver(device="cpu")
+res = solver.solve(pods, templates, its)
+store, cluster, prov, cands = underutilized_fleet(12, device="cpu")
+plan = joint_retirement_plan(prov, cluster, store, cands, want_singles=True)
+with open("/proc/self/maps") as f:
+    maps = sorted({line.split()[-1] for line in f if ".so" in line})
+print(json.dumps({"engine": solver.last_device_stats["engine"],
+                  "retired": len(plan.selected_idx),
+                  "lib": str(native.lib_path()), "maps": maps}))
+"""
+
+
+def test_routed_solve_maps_only_the_ports_library():
+    env = dict(os.environ, KARPENTER_NATIVE_CUTOFF="192")
+    out = subprocess.run(
+        [sys.executable, "-c", _NATIVE_SCRIPT], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300, check=True)
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["engine"] == "native" and got["retired"] >= 2
+    assert got["lib"] in got["maps"]
+    assert Path(got["lib"]).is_relative_to(ROOT / "build")
+    jax_pkg = str(ROOT / "karpenter_tpu") + os.sep
+    assert not [m for m in got["maps"]
+                if m.startswith(jax_pkg) or "libkarpenter_kernel" in m]
 
 
 def _forbidden(name: str | None) -> bool:
