@@ -30,7 +30,10 @@ It imports nothing of JAX or of ``karpenter_tpu``.
    on the CPU plain path: assign, assign_e, used, tmpl, F, price must be
    bit-equal, and a CPU solve must open the same number of nodes. Times
    the LP bin floor (``ops/relax.py``), which sizes the headline's bin
-   axis on the card as the JAX package's does on an accelerator.
+   axis on the card as the JAX package's does on an accelerator. Then the
+   pack loop's multiply-add tie (``tie_check``: 400 pods of 200 cpu
+   sizes, Gp 256, Tp 64, Bp 64): card = CPU bit for bit, and group row
+   126's two pods on bin 5, none on bin 1, the jnp loop's decision.
 6. The live round, the second main path: the headline's claims launched
    as a 1,128-node cluster (``workload.live_cluster``) and 5,000 pods of
    the upstream scheduling benchmark's 1/6 constraint mix (seed 42)
@@ -146,6 +149,27 @@ It imports nothing of JAX or of ``karpenter_tpu``.
    with ``--device cpu`` (every solve native, the same nodes and bound
    pods), and as a program with ``--metrics`` (``/metrics`` scraped
    once, every pod bound).
+12. The observability planes (``karpenter_tpu_torch/obs``), the obs
+   phase, reusing the runs above; the tracer stays on throughout (its
+   default) with ``KARPENTER_TRACE_DIR`` a temporary directory. At the
+   headline: 25 interleaved pairs of solves with the tracer on and off
+   after 6 untimed ones (each side's minimum must hold
+   ``tests/test_obs.py``'s bound, on <= off x 1.02 + 20 ms), then one traced solve under torch.profiler with the LP
+   floor off, whose ``solve.kernel`` spans must last at least the device
+   time the profiler records (the span waits for the card). The operator
+   loop's two runs (phase 8) each under a capture of the planes: the
+   decision records, the timeline's events and the compile ledger's
+   ``(family, key, cold)`` sequence must be equal on the card and on the
+   CPU plain path; the provision and disrupt rounds' top spans by self
+   time are printed; the longest disrupt round's leaf coverage must be at
+   least 0.95; every Chrome dump must parse, and ``python -m
+   karpenter_tpu_torch.obs report --timeline`` over the saved
+   ``/introspect`` snapshot must exit 0. The entry point (phase 11): in
+   process, the timeline must hold a launch and a registration for every
+   node and a bind for each of the 2,560 pods, on the card as with
+   ``--device cpu``; the program's ``/slo``, ``/introspect`` and
+   ``/usage`` must answer 200 with JSON, ``/introspect``'s timeline
+   counting the same launches, registrations and binds.
 
 ``python3 chip_smoke.py --full-storm [N]`` runs only the storm at
 ``perf/run.py``'s size (N 1,000) with the ladder on, round by round.
@@ -153,8 +177,9 @@ It imports nothing of JAX or of ``karpenter_tpu``.
 Prints one ``{"kernels": [...]}`` line, one ``{"solve": ...}`` line, one
 ``{"live_round": ...}`` line, one ``{"consolidation": ...}`` line, one
 ``{"operator": ...}`` line, one ``{"admission": ...}`` line, one
-``{"spot": ...}`` line, one ``{"engines": ...}`` line, the card line,
-and as its last line ``{"ok": true, "device": {...}}``. Any
+``{"spot": ...}`` line, one ``{"engines": ...}`` line, one ``{"obs": ...}``
+line, the card line, and as its last line ``{"ok": true, "device":
+{...}}``. Any
 failure raises and exits non-zero; so does a machine without CUDA.
 """
 
@@ -443,6 +468,45 @@ def check_dispatch(args_gpu, step_kw, kernels, label: str) -> tuple:
         check(a.shape == b.shape and np.array_equal(a, b),
               f"{label}: cuda and cpu solve_step differ in {key}")
     return start.elapsed_time(stop), cpu_ms
+
+
+def tie_check(kernels) -> dict:
+    """The pack loop's multiply-add tie: 400 pods of 200 cpu sizes (``0.1 +
+    (i % 200) · 0.01`` cpu, 1 GiB) on one pool over ``benchmark_catalog
+    (64)``, the LP floor off (Gp 256, Tp 64, Bp 64). Bin 1 holds 63.07 of
+    63.9 cpu when group row 126 (0.83 cpu, 2 pods) is packed: its capacity
+    is 1.0 op by op and 0.9999989 in one rounding, as the JAX package's
+    compiled loop computes it. On the card as on the CPU plain path
+    (bit-equal), both pods must land on bin 5 and none on bin 1 — the jnp
+    loop's decision (``tests/test_torch_kernels.py``
+    ``test_multiply_add_tie_bit_equal``)."""
+    from karpenter_tpu_torch.api.nodepool import NodePool
+    from karpenter_tpu_torch.api.objects import ObjectMeta, Pod
+    from karpenter_tpu_torch.cloudprovider.catalog import benchmark_catalog
+    from karpenter_tpu_torch.models import ClaimTemplate, TorchSolver
+    from karpenter_tpu_torch.ops.tensorize import kernel_args, tensorize
+
+    pods = [Pod(metadata=ObjectMeta(name=f"p{i}"),
+                requests={"cpu": 0.1 + (i % 200) * 0.01, "memory": 2**30})
+            for i in range(400)]
+    pool = NodePool(metadata=ObjectMeta(name="default"))
+    with env_knobs(KARPENTER_RELAX="0"):
+        snap = tensorize(pods, [ClaimTemplate(pool)],
+                         {"default": benchmark_catalog(64)})
+        plan = TorchSolver(device="cpu").plan(snap)
+    check((plan["Gp"], plan["Tp"], plan["Bp"]) == (256, 64, 64),
+          f"tie: the shape is {plan}")
+    args = kernels.from_kernel_args(
+        kernel_args(snap, Gp=plan["Gp"], Tp=plan["Tp"]), "cuda")
+    step_kw = dict(max_bins=plan["Bp"], level_bits=plan["level_bits"],
+                   max_minv=plan["max_minv"])
+    gpu_ms, cpu_ms = check_dispatch(args, step_kw, kernels, "tie")
+    row = kernels.solve_step(args, **step_kw)["assign"][126].cpu().numpy()
+    check(int(row[1]) == 0 and int(row[5]) == 2,
+          f"tie: group row 126 lands {row[:8].tolist()}, want both pods on "
+          "bin 5 and none on bin 1")
+    return {"Gp": plan["Gp"], "Tp": plan["Tp"], "Bp": plan["Bp"],
+            "row_126": row[:8].tolist(), "gpu_ms": gpu_ms, "cpu_ms": cpu_ms}
 
 
 def live_round_phase(claims, templates, its, cuda_kernels, kernels) -> tuple:
@@ -1044,11 +1108,8 @@ def operator_loop(device, kernels, cuda_kernels) -> dict:
                     "nodeclaims") if nc.name not in ordinal),
                     key=lambda s: int(s.rsplit("-", 1)[-1])):
                 ordinal[name] = len(ordinal)
-            rung = getattr(method, "last_probe", "")
-            if getattr(method, "last_rung", ""):
-                rung = f"{method.last_rung}/{method.last_reason}"
             commands.append((
-                type(method).__name__, rung, cmd.action,
+                type(method).__name__, method_rung(method), cmd.action,
                 [ordinal.get(c.name, -1) for c in cmd.candidates],
                 [sorted(it.name for it in claim.instance_types)
                  for claim in cmd.replacements]))
@@ -1057,14 +1118,16 @@ def operator_loop(device, kernels, cuda_kernels) -> dict:
         env.disruption._execute = execute
         gmethod = next(mt for mt in env.disruption.methods
                        if isinstance(mt, methods.GlobalConsolidation))
-        ladder = [mt for mt in env.disruption.methods
-                  if hasattr(mt, "last_probe_reason")]
         cons.reset_dispatch_log()
         for k in acc:
             acc[k] = 0 if isinstance(acc[k], int) else 0.0
         cuda_kernels.reset_launches()
         rounds: list = []
-        verdicts: set = set()
+        # the ladders' verdicts over the convergence, off the decision
+        # ledger: (site, rung, reason)
+        from karpenter_tpu_torch.obs import decisions
+
+        counts0 = decisions.counts()
         stage_delta()
         t_conv = time.perf_counter()
         stable = 0
@@ -1082,17 +1145,12 @@ def operator_loop(device, kernels, cuda_kernels) -> dict:
             env.run_until_idle(max_rounds=500)
             sync()
             wall = (time.perf_counter() - t0) * 1e3
-            for mt in [gmethod] + ladder:
-                verdicts.add((type(mt).__name__,
-                              getattr(mt, "last_rung", "")
-                              or getattr(mt, "last_probe", ""),
-                              getattr(mt, "last_reason", "")
-                              or getattr(mt, "last_probe_reason", "")))
             d = {k: acc[k] - snap0[k] for k in acc}
             rounds.append(dict(
                 wall_ms=wall, nodes=len(env.store.list("nodes")),
                 commands=commands[n_cmd:],
-                global_rung=f"{gmethod.last_rung}/{gmethod.last_reason}",
+                global_rung=(f"{gmethod.last_rung}/"
+                             f"{last_reason('consolidate.global')}"),
                 snapshot=dict(builds=d["build"], build_ms=d["build_ms"],
                               advances=d["advance"],
                               advance_ms=d["advance_ms"]),
@@ -1127,6 +1185,9 @@ def operator_loop(device, kernels, cuda_kernels) -> dict:
         over = [n.name for n in env.store.list("nodes")
                 if not resutil.fits(used.get(n.name, {}), n.allocatable)]
         failures = env.registry.counter(m.DISRUPTION_PROBE_FAILURES).total()
+        verdicts = {k for k, n in decisions.counts().items()
+                    if k[0] in ("consolidate.global", "probe.confirm")
+                    and n > counts0.get(k, 0)}
         rec = dict(
             provisioning=provisioning, start=start, end=end,
             commands=commands, command_stages=command_stages,
@@ -1168,11 +1229,14 @@ def operator_phase(cuda_kernels, kernels) -> tuple:
     # CPU plain path takes the same rungs
     with env_knobs(KARPENTER_RELAX="1"):
         t0 = time.perf_counter()
-        card = operator_loop(None, kernels, cuda_kernels)
+        with ObsCapture() as card_obs:
+            card = operator_loop(None, kernels, cuda_kernels)
         card_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        cpu = operator_loop("cpu", kernels, cuda_kernels)
+        with ObsCapture() as cpu_obs:
+            cpu = operator_loop("cpu", kernels, cuda_kernels)
         cpu_s = time.perf_counter() - t0
+    OBS["operator"] = (card_obs, cpu_obs)
 
     nodes, unbound = card["end"]
     bound = sum(len(n[4]) for n in nodes)
@@ -1310,6 +1374,118 @@ SPOT_EXPECT = {
                        end_nodes=100, pods_bound=300, end_cost=40.994563,
                        pods_lost_with_lead=0),
 }
+
+
+def method_rung(method) -> str:
+    """A command's rung as the tests' ``CommandLog`` writes it: the
+    method's ladder rung with the reason of its site's last verdict on the
+    decision ledger, else the kind of its probe."""
+    from karpenter_tpu_torch.obs import decisions
+
+    site = getattr(method, "decision_site", "")
+    if site and getattr(method, "last_rung", ""):
+        last = decisions.DECISIONS.site_summary().get(site, {}).get(
+            "last", {})
+        return f"{method.last_rung}/{last.get('reason', '')}"
+    return getattr(method, "last_probe", "")
+
+
+def last_reason(site: str) -> str:
+    """The reason of ``site``'s last verdict on the decision ledger."""
+    from karpenter_tpu_torch.obs import decisions
+
+    return decisions.DECISIONS.site_summary().get(site, {}).get(
+        "last", {}).get("reason", "")
+
+
+class ObsCapture:
+    """The port's observability planes over one run: the planes reset and
+    the tracer on (its ring sized to keep every round) on entry, the
+    decision records ``(site, rung, reason)`` and the compile ledger's
+    ``(family, key, cold)`` in order while it runs, and on exit the kept
+    rounds, the timeline's events (times and trace ids dropped, generated
+    names numbered by first appearance), the padding counts and the
+    ``/introspect`` snapshot."""
+
+    RING = 1_000_000
+
+    def __enter__(self):
+        from karpenter_tpu_torch import obs
+        from karpenter_tpu_torch.obs import decisions, devplane, timeline
+
+        self.planes = obs, decisions, devplane, timeline
+        # the timeline's ring holds every event of the run
+        self.knobs = env_knobs(KARPENTER_TIMELINE_RING=str(self.RING))
+        self.knobs.__enter__()
+        obs.reset()
+        obs.configure(enabled=True, capacity=self.RING)
+        devplane.reset()
+        timeline.reset()
+        self.decisions, self.ledger = [], []
+        record = decisions.DECISIONS.record
+        dispatch = devplane.LEDGER.record_dispatch
+
+        def spy_record(site, rung, reason="ok", **kw):
+            got = record(site, rung, reason, **kw)
+            self.decisions.append((site, rung, got))
+            return got
+
+        def spy_dispatch(family, key, seconds, **kw):
+            cold = dispatch(family, key, seconds, **kw)
+            self.ledger.append((family, repr(key), cold))
+            return cold
+
+        decisions.DECISIONS.record = spy_record
+        devplane.LEDGER.record_dispatch = spy_dispatch
+        return self
+
+    def __exit__(self, *exc):
+        obs, decisions, devplane, timeline = self.planes
+        del decisions.DECISIONS.record
+        del devplane.LEDGER.record_dispatch
+        self.traces = obs.RECORDER.traces()
+        seen: dict = {}
+
+        def name(field, value):
+            table = seen.setdefault(field, {})
+            return table.setdefault(value, len(table))
+
+        self.events = []
+        for ev in timeline.timeline_snapshot(k=self.RING)["events"]:
+            row = []
+            for k, v in sorted(ev.items()):
+                if k in ("at", "trace_id"):
+                    continue
+                if k in ("node", "claim"):
+                    v = name("node", v)
+                elif k == "pod":
+                    v = name("pod", v)
+                elif k == "cause" and v:
+                    v = sorted(v.items())
+                row.append((k, v))
+            self.events.append(row)
+        self.stats = {k: devplane.STATS[k] for k in (
+            "cold_compiles", "warm_dispatches", "pad_dispatches",
+            "pad_cells_actual", "pad_cells_padded", "bin_growths")}
+        self.introspect = decisions.introspect_snapshot(k=64)
+        self.knobs.__exit__(None, None, None)
+        obs.reset()
+        return False
+
+    def top_self_ms(self, round_name: str, top: int = 8) -> list:
+        """The spans with the most self time over every kept round of
+        ``round_name``."""
+        agg: dict = {}
+        for tr in self.traces:
+            if tr.name != round_name:
+                continue
+            for sp, (secs, n) in tr.self_times().items():
+                e = agg.setdefault(sp, [0.0, 0])
+                e[0] += secs
+                e[1] += n
+        rows = sorted(agg.items(), key=lambda kv: -kv[1][0])[:top]
+        return [{"span": sp, "self_ms": secs * 1e3, "count": n}
+                for sp, (secs, n) in rows]
 
 
 class PathRecorder:
@@ -1735,11 +1911,8 @@ def spot_leg(device, kernels, cuda_kernels, cons, lam, n_nodes) -> dict:
                         "nodeclaims") if nc.name not in ordinal),
                         key=lambda s: int(s.rsplit("-", 1)[-1])):
                     ordinal[name] = len(ordinal)
-                rung = getattr(method, "last_probe", "")
-                if getattr(method, "last_rung", ""):
-                    rung = f"{method.last_rung}/{method.last_reason}"
                 commands.append((
-                    type(method).__name__, rung, cmd.action,
+                    type(method).__name__, method_rung(method), cmd.action,
                     [ordinal.get(c.name, -1) for c in cmd.candidates],
                     [sorted(it.name for it in claim.instance_types)
                      for claim in cmd.replacements]))
@@ -1826,8 +1999,7 @@ def absorb_slack(device, kernels, cuda_kernels, cons) -> dict:
     real_execute = env.disruption._execute
 
     def execute(cmd, method=None):
-        commands.append((type(method).__name__,
-                         f"{method.last_rung}/{method.last_reason}",
+        commands.append((type(method).__name__, method_rung(method),
                          cmd.action, len(cmd.candidates),
                          len(cmd.replacements)))
         return real_execute(cmd, method)
@@ -1985,6 +2157,9 @@ def spot_phase(cuda_kernels, kernels) -> tuple:
 # arguments of their solves and probes, by name, and the pinned storm's
 # commands
 HANDOFF: dict = {}
+# the observability planes' captures the obs phase reads: the operator
+# loop's on the card and on the CPU
+OBS: dict = {}
 # the storm with the ladder at its default gates: the JAX package's
 # counts (ISSUE 6's) and its engines per storm solve on the same storm
 # (with each leg's fleet build, one native solve, 1,049 host loop and 195
@@ -2093,10 +2268,11 @@ def crossover(kernels, cuda_kernels) -> dict:
             args_gpu["t_mask"].shape[0]) > 1 << 14
         native_ms, nat = _median_ms(
             lambda: native.solve_step(args_np, kw["max_bins"]), 5)
-        card_ms, dev = _median_ms(lambda: card._invoke(args_gpu, *step), 5,
-                                  sync)
-        cpu_ms, plain = _median_ms(lambda: cpu._invoke(args_cpu, *step),
-                                   2 if big else 5)
+        # the step's static parameters as its compile-ledger key
+        card_ms, dev = _median_ms(
+            lambda: card._invoke(args_gpu, *step, key=step), 5, sync)
+        cpu_ms, plain = _median_ms(
+            lambda: cpu._invoke(args_cpu, *step, key=step), 2 if big else 5)
         for key in ("assign", "assign_e", "used", "tmpl", "F"):
             check(np.array_equal(dev[key], plain[key]),
                   f"engines {name}: the card and the CPU differ in {key}")
@@ -2253,13 +2429,14 @@ def entry_point(kernels, cuda_kernels, workdir: Path) -> dict:
                    KARPENTER_BATCH_MAX_DURATION="0"):
         for label, extra in (("card", []), ("cpu", ["--device", "cpu"])):
             err = io.StringIO()
-            with PathRecorder(kernels, cons) as rec:
+            with PathRecorder(kernels, cons) as rec, ObsCapture() as planes:
                 cuda_kernels.reset_launches()
                 t0 = time.perf_counter()
                 with contextlib.redirect_stderr(err):
                     rc = entry_main(argv + extra)
                 wall_s = time.perf_counter() - t0
                 launches = dict(cuda_kernels.LAUNCHES)
+            OBS[f"entry {label}"] = planes
             check(rc == 0, f"entry point {label}: exit code {rc}")
             nodes, bound = _entry_end(err.getvalue())
             runs[label] = dict(
@@ -2294,8 +2471,12 @@ def entry_point(kernels, cuda_kernels, workdir: Path) -> dict:
             port = sock.getsockname()[1]
         env = dict(os.environ, KARPENTER_METRICS_PORT=str(port),
                    KARPENTER_METRICS_BIND="127.0.0.1")
+        env["KARPENTER_TRACE_DIR"] = str(workdir / "program-traces")
         t0 = time.perf_counter()
         err_path = workdir / "entry_program.err"
+        # the planes' endpoints, polled while the program runs: the last
+        # answer of each is kept (the program exits after its ticks)
+        planes: dict = {}
         with open(err_path, "w") as err_file:
             proc = subprocess.Popen(
                 [sys.executable, "-m", "karpenter_tpu_torch", *argv,
@@ -2303,13 +2484,24 @@ def entry_point(kernels, cuda_kernels, workdir: Path) -> dict:
                 stdout=subprocess.DEVNULL, stderr=err_file)
             try:
                 body = None
-                while body is None and proc.poll() is None:
+                while proc.poll() is None:
                     try:
-                        body = urllib.request.urlopen(
-                            f"http://127.0.0.1:{port}/metrics",
-                            timeout=5).read().decode()
-                    except OSError:
-                        time.sleep(0.2)
+                        if body is None:
+                            body = urllib.request.urlopen(
+                                f"http://127.0.0.1:{port}/metrics",
+                                timeout=5).read().decode()
+                        got = {}
+                        for path in ("/slo", "/introspect", "/usage"):
+                            with urllib.request.urlopen(
+                                    f"http://127.0.0.1:{port}{path}",
+                                    timeout=5) as r:
+                                got[path] = (r.status,
+                                             r.headers["Content-Type"],
+                                             json.loads(r.read().decode()))
+                        planes = got
+                    except (OSError, ValueError):
+                        pass
+                    time.sleep(0.2)
                 proc.wait(timeout=600)
             finally:
                 if proc.poll() is None:
@@ -2328,6 +2520,7 @@ def entry_point(kernels, cuda_kernels, workdir: Path) -> dict:
         runs["program"] = dict(wall_s=wall_s, nodes=nodes, bound=bound,
                                metrics_bytes=len(body or ""),
                                last_line=err.strip().splitlines()[-1])
+        OBS["entry program"] = dict(planes, nodes=nodes, bound=bound)
     runs["pods"] = ENTRY_PODS
     return runs
 
@@ -2365,6 +2558,213 @@ def engines_phase(kernels, cuda_kernels, workdir: Path) -> tuple:
     return line, launches
 
 
+# tests/test_obs.py takes 7 pairs; on an H100 (NVIDIA H100 80GB HBM3,
+# 700 W) the headline's wall spreads over 312-667 ms from solve to solve
+# with the tracer off, falling over a run's first dozen solves, and 7
+# samples a side left one side's minimum an outlier 40 ms below the
+# other's, wider than the bound; 15 left it 24 ms below against a 27 ms
+# bound. 25 pairs after 6 untimed solves let both minimums reach the
+# floor
+OBS_PAIRS, OBS_WARMUP = 25, 6
+
+
+def obs_headline(solver, pods, templates, its, cuda_kernels) -> dict:
+    """The headline solve with the tracer on and off, on clones of one
+    batch: after ``OBS_WARMUP`` untimed solves, ``OBS_PAIRS`` interleaved
+    pairs (alternating which side runs first, the garbage collector held
+    off inside each timing), each side's minimum, which must hold
+    ``tests/test_obs.py``'s bound (on <= off x 1.02 + 20 ms). Then one
+    traced solve under torch.profiler, with the LP floor off so that
+    every kernel of the solve runs inside its ``solve.kernel`` span: the
+    span must be at least the device time the profiler records, which
+    proves the span waits for the card. Compat must launch 2 + Gp times
+    per dispatch throughout."""
+    import gc
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from karpenter_tpu_torch import obs
+
+    expected = [0]
+
+    def one(traced: bool) -> tuple:
+        batch = [p.clone() for p in pods]
+        obs.configure(enabled=traced)
+        tr = None
+        # the collector's pauses over 50k-pod batches are the noise that
+        # would swamp the tracer's cost: collected before, held off during
+        gc.collect()
+        gc.disable()
+        try:
+            t0 = time.perf_counter()
+            if traced:
+                with obs.round_trace("headline") as tr:
+                    solver.solve(batch, templates, its)
+            else:
+                solver.solve(batch, templates, its)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            gc.enable()
+        st = solver.last_device_stats
+        expected[0] += (2 + st["Gp"]) * (1 + st.get("bin_growths", 0))
+        return ms, tr
+
+    # untimed warm-up: the first solves of a run are slower as the host
+    # settles, and would bias whichever side they fell on
+    for i in range(OBS_WARMUP):
+        one(i % 2 == 1)
+    expected[0] = 0
+    cuda_kernels.reset_launches()
+    off, on = [], []
+    for i in range(OBS_PAIRS):  # interleaved, alternating the first side
+        for traced in ((False, True) if i % 2 == 0 else (True, False)):
+            (on if traced else off).append(one(traced)[0])
+    obs.configure(enabled=True)
+    check(min(on) <= min(off) * 1.02 + 20.0,
+          f"obs: the tracer costs the headline solve too much: on "
+          f"{min(on):.1f} ms against off {min(off):.1f} ms "
+          f"(samples on {on}, off {off})")
+    with env_knobs(KARPENTER_RELAX="0"):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _, tr = one(True)
+    launches = dict(cuda_kernels.LAUNCHES)
+    check(launches["compat"] == expected[0],
+          f"obs: compat launches {launches['compat']} != 2 + Gp per "
+          f"dispatch ({expected[0]})")
+    device_us = sum(ev.duration_ns() / 1e3
+                    for ev in prof.profiler.kineto_results.events()
+                    if ev.device_type() == DeviceType.CUDA)
+    spans = [sp for sp in tr.spans() if sp.name == "solve.kernel"]
+    span_ms = sum(sp.dur for sp in spans) * 1e3
+    check(spans and device_us > 0 and span_ms >= device_us / 1e3,
+          f"obs: solve.kernel spans {span_ms:.3f} ms < the solve's device "
+          f"time {device_us / 1e3:.3f} ms")
+    names = {sp.name for sp in tr.spans()}
+    check({"tensorize.build", "solve.kernel", "solve.dispatch",
+           "solve.block", "solve.decode"} <= names,
+          f"obs: the headline round's spans {sorted(names)}")
+    return {"pairs": OBS_PAIRS, "on_ms": on, "off_ms": off,
+            "on_min_ms": min(on), "off_min_ms": min(off),
+            "on_median_ms": statistics.median(on),
+            "off_median_ms": statistics.median(off),
+            "overhead_ms": min(on) - min(off),
+            "profiled": {"solve_kernel_span_ms": span_ms,
+                         "device_ms": device_us / 1e3,
+                         "spans": len(spans),
+                         "top_self_ms": tr.summary(top=8)},
+            "compat_launches": launches["compat"]}
+
+
+def _census(events: list) -> dict:
+    """Distinct nodes launched and registered, and distinct pods bound, in
+    a capture's timeline events."""
+    out = {"launch": set(), "register": set(), "bind": set()}
+    for ev in events:
+        ev = dict(ev)
+        if ev["kind"] in ("launch", "register"):
+            out[ev["kind"]].add(ev["node"])
+        elif ev["kind"] == "bind":
+            out["bind"].add(ev["pod"])
+    return {k: len(v) for k, v in out.items()}
+
+
+def obs_phase(card: str, trace_dir: Path, headline: dict) -> dict:
+    """The observability planes on the card, from the captures the
+    earlier phases made: the operator loop's decision records, timeline
+    events and compile ledger equal on the card and on the CPU plain
+    path, its rounds' top spans by self time, the longest disrupt round's
+    leaf coverage (>= 0.95, ``tests/test_obs.py``'s acceptance), the
+    Chrome dumps in ``trace_dir`` valid, ``python -m
+    karpenter_tpu_torch.obs report`` over the saved ``/introspect``
+    snapshot exiting 0; the entry point's timeline (launch and register
+    for every node, bind for every pod) in process and through the
+    program's ``/slo``, ``/introspect`` and ``/usage``."""
+    card_obs, cpu_obs = OBS["operator"]
+    for what in ("decisions", "events", "ledger", "stats"):
+        a, b = getattr(card_obs, what), getattr(cpu_obs, what)
+        diff = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                    min(len(a), len(b))) if isinstance(a, list) else None
+        check(a == b, f"obs: the operator loop's {what} differ on the card "
+                      f"and on the CPU plain path (from entry {diff})")
+    check(card_obs.decisions and card_obs.events and card_obs.ledger,
+          "obs: the operator loop left the planes empty")
+    disrupt = [t for t in card_obs.traces if t.name == "disrupt"]
+    check(disrupt, "obs: no disrupt round was kept")
+    longest = max(disrupt, key=lambda t: t.root.dur or 0.0)
+    coverage = longest.leaf_coverage()
+    check(coverage >= 0.95,
+          f"obs: the longest disrupt round's leaf coverage {coverage:.4f} "
+          f"< 0.95: {longest.summary(top=8)}")
+    dumps = sorted(trace_dir.glob("*.trace.json"))
+    for path in dumps:
+        doc = json.loads(path.read_text())
+        check(doc["traceEvents"] and doc["displayTimeUnit"] == "ms",
+              f"obs: {path.name} is not a trace-event file")
+    intro = trace_dir / "introspect.json"
+    intro.write_text(json.dumps(card_obs.introspect))
+    report = subprocess.run(
+        [sys.executable, "-m", "karpenter_tpu_torch.obs", "report", "--file",
+         str(intro), "--timeline"], capture_output=True, text=True,
+        timeout=120, cwd=Path(__file__).resolve().parent)
+    check(report.returncode == 0 and "decision plane" in report.stdout
+          and "fleet ledger" in report.stdout,
+          f"obs: report exited {report.returncode}: {report.stderr[-2000:]}")
+
+    entry = {}
+    for label in ("card", "cpu"):
+        census = _census(OBS[f"entry {label}"].events)
+        entry[label] = census
+        check(census["launch"] == census["register"] > 0
+              and census["bind"] == ENTRY_PODS,
+              f"obs: the entry point's timeline ({label}): {census}")
+    check(entry["card"] == entry["cpu"],
+          f"obs: the entry point's timeline, card {entry['card']} against "
+          f"cpu {entry['cpu']}")
+    prog = OBS["entry program"]
+    for path in ("/slo", "/introspect", "/usage"):
+        check(path in prog and prog[path][0] == 200
+              and prog[path][1] == "application/json",
+              f"obs: the program's {path} did not answer 200 with JSON")
+    kinds = prog["/introspect"][2]["timeline"]["ring"]["kinds"]
+    check(kinds.get("launch") == kinds.get("register") == prog["nodes"]
+          and kinds.get("bind") == prog["bound"] == ENTRY_PODS,
+          f"obs: the program's timeline kinds {kinds}, want "
+          f"{prog['nodes']} launches and registrations and {ENTRY_PODS} "
+          "binds")
+    check("compile_ledger" in prog["/slo"][2]
+          and "total_device_seconds" in prog["/usage"][2],
+          "obs: the program's /slo or /usage lacks its keys")
+    return {"obs": {
+        "card": card,
+        "operator": {
+            "decisions": len(card_obs.decisions),
+            "events": len(card_obs.events),
+            "ledger": len(card_obs.ledger),
+            "cold": sum(1 for *_, cold in card_obs.ledger if cold),
+            "stats": card_obs.stats,
+            "rounds": len(card_obs.traces),
+            "anomalies": sorted({k for t in card_obs.traces
+                                 for k, _, _ in t.anomalies}),
+            "top_self_ms": {name: card_obs.top_self_ms(name)
+                            for name in ("provision", "disrupt")},
+            "cpu_top_self_ms": {name: cpu_obs.top_self_ms(name)
+                                for name in ("provision", "disrupt")},
+            "longest_disrupt_ms": (longest.root.dur or 0.0) * 1e3,
+            "leaf_coverage": coverage,
+            "dumps": len(dumps),
+            "report_lines": len(report.stdout.splitlines()),
+        },
+        "headline": headline,
+        "entry_point": {"in_process": entry, "program": {
+            "kinds": kinds, "nodes": prog["nodes"], "bound": prog["bound"],
+            "usage_total_s": prog["/usage"][2]["total_device_seconds"],
+            "sites": sorted(prog["/introspect"][2]["sites"])}},
+    }}
+
+
 def main() -> int:
     import torch
 
@@ -2379,11 +2779,22 @@ def main() -> int:
     from karpenter_tpu_torch.utils import resources as resutil
     from karpenter_tpu_torch.workload import build_workload
 
+    import os
+    import tempfile
+
+    from karpenter_tpu_torch import obs
+
     t_script = time.perf_counter()
     dev = torch.device("cuda")
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"card: {card}", flush=True)
+    # the flight recorder dumps anomalous rounds' Chrome traces here
+    trace_tmp = tempfile.TemporaryDirectory(prefix="karpenter-traces-")
+    trace_dir = Path(trace_tmp.name)
+    os.environ["KARPENTER_TRACE_DIR"] = str(trace_dir)
+    os.environ.pop("KARPENTER_TRACE", None)
+    obs.reset()
 
     # ---- build every kernel ----
     t0 = time.perf_counter()
@@ -2435,6 +2846,11 @@ def main() -> int:
     warm = dict(solver.last_device_stats)
     check(res2.node_count() == res.node_count(), "warm solve differs")
 
+    # the tracer on and off at the headline (the obs phase's first part)
+    t0 = time.perf_counter()
+    obs_head = obs_headline(solver, pods2, templates2, its2, cuda_kernels)
+    obs_head["phase_s"] = time.perf_counter() - t0
+
     # ---- the same snapshot, tensor by tensor ----
     tpl_sorted = sorted(templates2, key=lambda t: (-t.weight, t.nodepool_name))
     snap = tensorize(pods2, tpl_sorted, its2)
@@ -2468,6 +2884,9 @@ def main() -> int:
     res_cpu = cpu_solver.solve(pods3, templates3, its3)
     check(res_cpu.node_count() == res.node_count(),
           f"node count cuda {res.node_count()} != cpu {res_cpu.node_count()}")
+
+    # the multiply-add tie, on the card and on the CPU plain path
+    tie = tie_check(kernels)
 
     headline_s = time.perf_counter() - t_headline
 
@@ -2508,6 +2927,11 @@ def main() -> int:
         eng_line, eng_launches = engines_phase(kernels, cuda_kernels,
                                                Path(workdir))
     eng_line["engines"]["phase_s"] = time.perf_counter() - t0
+
+    # ---- the observability planes, from the captures above ----
+    t0 = time.perf_counter()
+    obs_line = obs_phase(card, trace_dir, obs_head)
+    obs_line["obs"]["phase_s"] = time.perf_counter() - t0
 
     # ---- every kernel against its plain version, on the card ----
     _, K, W = args_gpu["g_mask"].shape
@@ -2552,14 +2976,15 @@ def main() -> int:
         "launches": (launches["compat"] + live_launches["compat"]
                      + cons_launches["compat"] + op_launches["compat"]
                      + adm_launches["compat"] + spot_launches["compat"]
-                     + eng_launches["compat"]),
+                     + eng_launches["compat"] + obs_head["compat_launches"]),
         "launches_by_path": {"headline": launches["compat"],
                              "live_round": live_launches["compat"],
                              "consolidation": cons_launches["compat"],
                              "operator": op_launches["compat"],
                              "admission": adm_launches["compat"],
                              "spot": spot_launches["compat"],
-                             "engines": eng_launches["compat"]},
+                             "engines": eng_launches["compat"],
+                             "obs": obs_head["compat_launches"]},
         "max_abs_err": 0 if mismatches == 0 else 1,
         "tolerance": "exact (one bool per cell)",
         "mismatches": mismatches,
@@ -2594,6 +3019,7 @@ def main() -> int:
         "lp_floor": stats["floor"], "lp_led": stats["lp_led"],
         "lp_lb": float(lb), "lp_iters": floor_iters,
         "lp_floor_trace": floor_trace,
+        "tie": tie,
         "build_s": build_s, "phase_s": headline_s,
     }}
     print(json.dumps(kernels_line))
@@ -2605,6 +3031,9 @@ def main() -> int:
     print(json.dumps(adm_line))
     print(json.dumps(spot_line))
     print(json.dumps(eng_line))
+    obs_line["obs"]["script_s"] = time.perf_counter() - t_script
+    print(json.dumps(obs_line))
+    trace_tmp.cleanup()
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -13,7 +13,8 @@ karpenter.sh API version — NodePool/NodeClaim wire docs run through the
 conversion layer (``api/conversion.py``), the kwok catalog backs instance
 types, and a ``Pod`` shorthand (``{"kind": "Pod", "name", "cpu", "memory",
 "replicas"}``) seeds workload. ``--metrics`` serves the Prometheus
-registry at ``/metrics`` and liveness at ``/healthz`` on
+registry at ``/metrics``, liveness at ``/healthz`` and the observability
+planes' JSON at ``/slo``, ``/introspect`` and ``/usage`` on
 ``KARPENTER_METRICS_PORT``.
 
 The solver is ``make_solver()``: ``TorchSolver()`` on the CUDA card, with
@@ -21,8 +22,7 @@ the engine ladder of ``models/solver.py``; without a card it raises.
 ``--device cpu`` (the counterpart of the JAX package's
 ``JAX_PLATFORMS=cpu``) runs ``TorchSolver(device="cpu")``, whose batches
 take the native engine (a CPU is not an accelerator) or the plain PyTorch
-path. Not in the port yet (ROADMAP.md): the ``/slo``, ``/introspect`` and
-``/usage`` endpoints (the observability planes) and ``--solver`` /
+path. Not in the port yet (ROADMAP.md Queue 1 item 2): ``--solver`` /
 ``KARPENTER_SOLVER_TARGET`` (the solver service), which are refused.
 """
 
@@ -88,7 +88,13 @@ def _apply(env, plural: str, doc: dict) -> int:
 
 def serve_metrics(registry, port: int, host: str = ""):
     """Prometheus text endpoint (the operator.go:160 metrics mux analog)
-    at ``/metrics`` plus ``/healthz`` liveness, on a daemon thread; the
+    on a daemon thread, plus the health/SLO/introspection surfaces:
+    ``/healthz`` liveness, ``/slo`` (the device-plane SLO trackers and
+    the compile ledger, obs/devplane.py), ``/introspect`` (the decision
+    plane's rung mixes, round summaries, quality series, retained
+    anomalous rounds and the fleet timeline, obs/decisions.py; ``python
+    -m karpenter_tpu_torch.obs report`` renders it) and ``/usage`` (the
+    fleet ledger's per-tenant device-time billing, obs/timeline.py). The
     caller shuts the returned server down. ``host`` defaults to all
     interfaces for containerized scrapes; ``KARPENTER_METRICS_BIND``
     narrows it."""
@@ -96,15 +102,33 @@ def serve_metrics(registry, port: int, host: str = ""):
 
     class Handler(BaseHTTPRequestHandler):
         def do_GET(self):
-            if self.path not in ("/metrics", "/healthz"):
+            if self.path not in ("/metrics", "/healthz", "/slo",
+                                 "/introspect", "/usage"):
                 self.send_response(404)
                 self.end_headers()
                 return
-            body = (
-                registry.expose() if self.path == "/metrics" else "ok"
-            ).encode()
+            if self.path == "/slo":
+                from karpenter_tpu_torch.obs import devplane
+
+                body = json.dumps(devplane.slo_snapshot()).encode()
+                ctype = "application/json"
+            elif self.path == "/introspect":
+                from karpenter_tpu_torch.obs import decisions
+
+                body = json.dumps(decisions.introspect_snapshot()).encode()
+                ctype = "application/json"
+            elif self.path == "/usage":
+                from karpenter_tpu_torch.obs import timeline
+
+                body = json.dumps(timeline.usage_snapshot()).encode()
+                ctype = "application/json"
+            else:
+                body = (
+                    registry.expose() if self.path == "/metrics" else "ok"
+                ).encode()
+                ctype = "text/plain; version=0.0.4"
             self.send_response(200)
-            self.send_header("Content-Type", "text/plain; version=0.0.4")
+            self.send_header("Content-Type", ctype)
             self.end_headers()
             self.wfile.write(body)
 

@@ -30,8 +30,7 @@ solver. Three ladders:
 is held against.
 
 The port's copy of ``karpenter_tpu/admission/`` (imports changed; the
-decision-ledger sites and replay captures are left out, ROADMAP.md
-Queue 1 items 1 and 2).
+replay captures are left out, ROADMAP.md Queue 1 item 1).
 """
 
 from karpenter_tpu_torch.admission.plane import AdmissionPlane  # noqa: F401

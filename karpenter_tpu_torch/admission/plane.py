@@ -44,13 +44,16 @@ fused round and the residual rows run on the port's solver and a
 probe marks feasible, as in the JAX package. Where the JAX
 package catches every exception of a gang trial or a probe, the port lets
 a device fault (``ops.cuda_kernels.DEVICE_FAULTS``) propagate and falls
-back on anything else. Left out: the decision-ledger verdicts and the
-flight-recorder spans (ROADMAP.md Queue 1 item 1); the round's ``report``
-carries its counts.
+back on anything else. Each round records its ``admission.tier``
+verdict, each gang its ``admission.gang`` verdict and each examined
+preemptor one ``admission.preempt`` verdict on the decision ledger, as
+in the JAX package; the round's ``report`` also counts the preemption
+probe dispatches (``preempt_probes``).
 """
 
 from __future__ import annotations
 
+from karpenter_tpu_torch import obs
 from karpenter_tpu_torch.admission import preempt as _preempt
 from karpenter_tpu_torch.admission.fork import (
     fork_claim,
@@ -71,6 +74,7 @@ from karpenter_tpu_torch.ops.cuda_kernels import DEVICE_FAULTS
 from karpenter_tpu_torch.api import labels as wk
 from karpenter_tpu_torch.models.scheduler import NullTopology, SchedulerResults
 from karpenter_tpu_torch.models.solver import HostSolver, TorchSolver
+from karpenter_tpu_torch.obs import decisions
 from karpenter_tpu_torch.utils.envknobs import env_bool as _env_bool
 from karpenter_tpu_torch.utils.envknobs import env_int as _env_int
 
@@ -225,11 +229,19 @@ class AdmissionPlane:
                 daemon_overhead, volume_topology, errors, report)
             unplaced.extend((prio, p) for p in missed)
         flush()
+        decisions.record_decision(
+            "admission.tier",
+            "fused" if report["fused_runs"]
+            else ("cascade" if len(all_prios) > 1 else "single"),
+            "ok" if len(all_prios) > 1 else "single-tier",
+            registry=self.registry)
 
         if unplaced and self.store is not None and _preempt_enabled():
-            self._preempt_round(unplaced, prio_of, classes, state, solver,
-                                templates, its, daemon_overhead, errors,
-                                report)
+            with obs.span("admission.preempt",
+                          preemptors=len(unplaced)):
+                self._preempt_round(unplaced, prio_of, classes, state,
+                                    solver, templates, its,
+                                    daemon_overhead, errors, report)
 
         results = SchedulerResults(
             new_claims=state.claims,
@@ -448,6 +460,8 @@ class AdmissionPlane:
             state.limits = debit_limits(fork_limits(state.limits), new)
             report["gangs_placed"] += 1
             self._note_routed(solver, report)  # the trial IS the commit
+            decisions.record_decision("admission.gang", "atomic", "ok",
+                                      registry=self.registry)
         else:
             starved = any("exceed limits" in str(e)
                           for e in res.pod_errors.values())
@@ -459,6 +473,8 @@ class AdmissionPlane:
         for p in gang.pods:
             errors[p.key()] = f'pod group "{gang.name}" host-routed: {why}'
         report["gangs_routed"] += 1
+        decisions.record_decision("admission.gang", "routed", reason,
+                                  registry=self.registry)
 
     # -- preemption -------------------------------------------------------
     def _preempt_round(self, unplaced, prio_of, classes, state, solver,
@@ -533,6 +549,9 @@ class AdmissionPlane:
                      its, daemon_overhead, pdb_limits, taken, max_confirms,
                      errors, report, device, probe=None) -> str:
         if preemption_policy_of(pod, classes) == "Never":
+            decisions.record_decision("admission.preempt", "skipped",
+                                      "policy-never",
+                                      registry=self.registry)
             return "skipped"
         feas = None
         have_feas = False
@@ -550,7 +569,10 @@ class AdmissionPlane:
             cands = _preempt.victim_sets(pod, state.enodes, prio_of,
                                          classes, pdb_limits, taken)
         if not cands:
+            decisions.record_decision("admission.preempt", "skipped",
+                                      "no-victims", registry=self.registry)
             return "skipped"
+        probe_error = False
         if not have_feas:
             try:
                 feas = _preempt.probe_feasible(
@@ -566,6 +588,11 @@ class AdmissionPlane:
                 logging.getLogger(__name__).warning(
                     "preemption probe failed; confirming sequentially",
                     exc_info=True)
+                # no verdict yet: the ladder records exactly ONE per
+                # examined preemptor — the probe-error cause rides a
+                # declining verdict below; a confirm that still lands
+                # records confirmed/ok
+                probe_error = True
                 feas = None
         # probe misses stay misses (seeds are trusted negative only up to
         # the bounded confirm budget below); inexpressible probes confirm
@@ -575,6 +602,10 @@ class AdmissionPlane:
             if feas is not None else list(cands)
         )
         if not ordered:
+            decisions.record_decision(
+                "admission.preempt", "declined",
+                "probe-error" if probe_error else "no-feasible-node",
+                registry=self.registry)
             report["preempt_declined"] += 1
             return "declined"
         confirmed = None
@@ -585,6 +616,10 @@ class AdmissionPlane:
                 break
             report["preempt_unconfirmed"] += 1
         if confirmed is None:
+            decisions.record_decision(
+                "admission.preempt", "declined",
+                "probe-error" if probe_error else "confirm-failed",
+                registry=self.registry)
             report["preempt_declined"] += 1
             return "declined"
         evicted, complete = _preempt.execute_evictions(
@@ -595,6 +630,8 @@ class AdmissionPlane:
             # a PDB that closed mid-set: whatever shipped stays shipped
             # (its capacity returns to the pool) but the preemptor is NOT
             # nominated and keeps its scheduling error for the next round
+            decisions.record_decision("admission.preempt", "declined",
+                                      "pdb-blocked", registry=self.registry)
             report["preempt_declined"] += 1
             return "declined"
         taken.add(confirmed.node_name)
@@ -602,4 +639,6 @@ class AdmissionPlane:
         # the preemptor is nominated, not failed: drop its error so the
         # round doesn't publish FailedScheduling for a pod mid-preemption
         errors.pop(pod.key(), None)
+        decisions.record_decision("admission.preempt", "confirmed", "ok",
+                                  registry=self.registry)
         return "confirmed"

@@ -36,15 +36,16 @@ card, as ``TorchSolver()`` does; ``device="cpu"`` is the plain PyTorch
 path): on the card each row's compat product is the CUDA kernel. The JAX
 package's "return None when ``import jax`` fails" is gone: an
 inexpressible scenario still returns None, and a device fault
-propagates. Left out: the flight-recorder
-span and the replay capture on the ``preempt.dispatch`` seam (ROADMAP.md
-Queue 1 items 1 and 2).
+propagates. Each probe dispatch runs in a ``preempt.dispatch`` span
+(``device``). Left out: the replay capture on that seam (ROADMAP.md
+Queue 1 item 1).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from karpenter_tpu_torch import obs
 from karpenter_tpu_torch.admission.fork import fork_enode, fork_topology
 from karpenter_tpu_torch.admission.priority import preemption_policy_of
 from karpenter_tpu_torch.utils import pod as pod_util
@@ -193,9 +194,10 @@ def probe_feasible(preemptor, candidates: list, templates, its,
                 delta[snap.resources.index(r)] = v
         e_free.append((i, delta))
     max_minv = int(snap.m_minv.max()) if snap.m_minv.size else 0
-    placed_g, used = dispatch_counterfactual_rows(
-        shared, Gp, Ep, esnap.e_avail, max_minv, g_count_k,
-        e_zero_cols, e_free=e_free)
+    with obs.span("preempt.dispatch", rows=rows, kind="device"):
+        placed_g, used = dispatch_counterfactual_rows(
+            shared, Gp, Ep, esnap.e_avail, max_minv, g_count_k,
+            e_zero_cols, e_free=e_free)
     return [bool(placed_g[i, 0] >= 1 and used[i] == 0)
             for i in range(rows)]
 
@@ -265,9 +267,11 @@ def probe_feasible_batch(preemptors: list, cand_lists: list, templates,
                 delta[snap.resources.index(r)] = v
         e_free.append((col, delta))
     max_minv = int(snap.m_minv.max()) if snap.m_minv.size else 0
-    placed_g, used = dispatch_counterfactual_rows(
-        shared, Gp, Ep, esnap.e_avail, max_minv, g_count_k,
-        e_zero_cols, e_free=e_free)
+    with obs.span("preempt.dispatch", rows=rows, kind="device",
+                  preemptors=len(preemptors)):
+        placed_g, used = dispatch_counterfactual_rows(
+            shared, Gp, Ep, esnap.e_avail, max_minv, g_count_k,
+            e_zero_cols, e_free=e_free)
     out = [[] for _ in cand_lists]
     for i, (j, _) in enumerate(pairs):
         g = gidx[preemptors[j].uid]

@@ -12,16 +12,19 @@ blocking TTL wait as a pending-command slot re-checked on later polls.
 The port's copy of ``karpenter_tpu/controllers/disruption/controller.py``
 (imports changed; ``TorchSolver`` where the JAX package tests for
 ``TPUSolver``). ``InterruptionDrain`` runs first in the ring and the
-cloud provider's interruption notices are pulled on every poll. Left out:
-``_observe_fleet_cost`` and the command's fleet-ledger entry
-(``obs.timeline``, ROADMAP.md Queue 1 item 1), and the flight-recorder
-spans. A snapshot prewarm that hits a device fault propagates, as the
-probes do (``ops.cuda_kernels.DEVICE_FAULTS``); any other failure falls back and
-is counted in ``DISRUPTION_PROBE_FAILURES`` (method ``prewarm``).
+cloud provider's interruption notices are pulled on every poll. Each
+round is a ``disrupt`` flight-recorder round; ``_observe_fleet_cost``
+advances the fleet ledger's realized-cost integral, and an executed
+command opens its ledger entry with the predicted savings its drain
+events carry (obs/timeline.py). A snapshot prewarm that hits a device
+fault propagates, as the probes do (``ops.cuda_kernels.DEVICE_FAULTS``);
+any other failure falls back and is counted in
+``DISRUPTION_PROBE_FAILURES`` (method ``prewarm``).
 """
 
 from __future__ import annotations
 
+from karpenter_tpu_torch import obs
 from karpenter_tpu_torch.api.nodepool import REASON_EMPTY
 from karpenter_tpu_torch.controllers.disruption.helpers import (
     build_disruption_budgets,
@@ -157,12 +160,19 @@ class DisruptionController:
             return progressed
         self._log_abnormal_run(now)
         self._last_run = now
+        self._observe_fleet_cost(now)
         if not self.cluster.synced():
             return progressed
-        self._cleanup_orphan_taints()
-        if self._pending is not None:
-            return self._handle_pending() or progressed
-        return self._compute_round() or progressed
+        # one trace per disruption round: the method ladder, every probe
+        # dispatch, and every confirming simulation nest under it, so an
+        # anomalous round (probe fallback, >1 MultiNode confirm, snapshot
+        # rebuild) dumps with its full causal span tree
+        with obs.round_trace("disrupt", registry=self.registry):
+            with obs.span("disrupt.taint_cleanup"):
+                self._cleanup_orphan_taints()
+            if self._pending is not None:
+                return self._handle_pending() or progressed
+            return self._compute_round() or progressed
 
     # -- interruption notices (spot resilience) --------------------------
     def _pull_interruption_notices(self):
@@ -202,6 +212,21 @@ class DisruptionController:
                     f"capacity behind {sn.name if sn else n.provider_id} "
                     f"will be reclaimed at {n.deadline:.0f}",
                 )
+
+    # -- realized-cost observation (fleet ledger) ------------------------
+    def _observe_fleet_cost(self, now: float):
+        """Advance the fleet ledger's realized-cost integral once per
+        disruption round cadence (piecewise-constant between rounds): one
+        CatalogView per sweep resolves every store node's offering, the
+        integral accrues into ``karpenter_fleet_cost_realized_total``,
+        and exposure-hours feed the observed interruption-rate
+        denominators (obs/timeline.py)."""
+        from karpenter_tpu_torch.cloudprovider.types import CatalogView
+        from karpenter_tpu_torch.obs import timeline
+
+        view = CatalogView(self.store.list("nodepools"), self.cloud)
+        timeline.observe_fleet(self.store.list("nodes"), view, now,
+                               registry=self.registry)
 
     # -- watchdog (logAbnormalRuns, controller.go:274-283) ---------------
     def _log_abnormal_run(self, now: float):
@@ -247,13 +272,16 @@ class DisruptionController:
     def _compute_round(self) -> bool:
         from karpenter_tpu_torch.operator import metrics as m
 
-        candidates = get_candidates(
-            self.cluster, self.store, self.cloud, self.clock,
-            queue=self.queue, catalog_cache=self._catalog_cache,
-        )
+        with obs.span("disrupt.candidates"):
+            candidates = get_candidates(
+                self.cluster, self.store, self.cloud, self.clock,
+                queue=self.queue, catalog_cache=self._catalog_cache,
+            )
         self.registry.gauge(m.DISRUPTION_ELIGIBLE_NODES, "disruptable candidates").set(
             len(candidates))
-        budgets = build_disruption_budgets(self.cluster, self.store, self.clock)
+        with obs.span("disrupt.budgets"):
+            budgets = build_disruption_budgets(
+                self.cluster, self.store, self.clock)
         # allowed-disruptions gauge per (nodepool, reason), refreshed every
         # round — including candidate-free ones, so closed budget windows
         # and deleted pools never serve stale values
@@ -267,12 +295,15 @@ class DisruptionController:
             # noticed nodes must reach InterruptionDrain even when every
             # node fails the VOLUNTARY-disruption filters (do-not-disrupt,
             # PDB) — the reclaim doesn't care about those
+            obs.discard_round()  # idle tick: nothing disruptable
             return False
         fence = self.cluster.consolidation_state()
+        ran_search = False
         bundle_warmed = False
         for method in self.methods:
             if method.is_consolidation and fence == self._noop_fence:
                 continue  # nothing moved since the last fruitless search
+            ran_search = ran_search or method.is_consolidation
             if getattr(method, "uses_bundle", False) and not bundle_warmed:
                 # the round's shared snapshot belongs to the ROUND, not to
                 # whichever consolidation method happens to run first:
@@ -281,8 +312,10 @@ class DisruptionController:
                 # tensorization cost is attributable as bundle_ms
                 bundle_warmed = True
                 self._prewarm_bundle(candidates)
-            with self.registry.measure(m.DISRUPTION_EVAL_DURATION,
-                                       method=type(method).__name__):
+            with obs.span(f"method.{type(method).__name__}"), \
+                    self.registry.measure(
+                        m.DISRUPTION_EVAL_DURATION,
+                        method=type(method).__name__):
                 cmd = method.compute_command(list(candidates), budgets)
             if cmd is None or not cmd.candidates:
                 if getattr(method, "fence_round", False):
@@ -297,6 +330,13 @@ class DisruptionController:
                 return True
             return self._execute(cmd, method)
         self._noop_fence = fence
+        if not ran_search:
+            # candidates exist but every consolidation search sat behind
+            # the noop fence and the cheap filters (Drift/Emptiness) found
+            # nothing — this tick carries no story; recording it every
+            # poll_period would churn the one interesting round out of
+            # the flight-recorder ring
+            obs.discard_round()
         return False
 
     def _prewarm_bundle(self, candidates):
@@ -326,19 +366,21 @@ class DisruptionController:
         if len(pool) < 2:
             return
         t0 = _time.perf_counter()
-        try:
-            self.ctx.snapshot_cache.get(
-                self.provisioner, self.cluster, self.store, pool,
-                registry=self.registry)
-        except DEVICE_FAULTS:
-            raise
-        except Exception:
-            import logging
+        with obs.span("disrupt.bundle", kind="cache",
+                      candidates=len(pool)):
+            try:
+                self.ctx.snapshot_cache.get(
+                    self.provisioner, self.cluster, self.store, pool,
+                    registry=self.registry)
+            except DEVICE_FAULTS:
+                raise
+            except Exception:
+                import logging
 
-            _probe_failure(self.ctx, "prewarm")
-            logging.getLogger(__name__).warning(
-                "snapshot prewarm failed; methods build on demand",
-                exc_info=True)
+                _probe_failure(self.ctx, "prewarm")
+                logging.getLogger(__name__).warning(
+                    "snapshot prewarm failed; methods build on demand",
+                    exc_info=True)
         cons.GLOBAL_STATS["bundle_ms"] += (
             _time.perf_counter() - t0) * 1000.0
 
@@ -346,9 +388,12 @@ class DisruptionController:
     def _handle_pending(self) -> bool:
         cmd, method, computed_at = self._pending
         if self.clock.now() - computed_at < self.validation_ttl:
+            obs.discard_round()  # idle tick: waiting out the TTL
             return False  # still inside the TTL window
         self._pending = None
-        if not self._validate(cmd, method):
+        with obs.span("disrupt.validate", method=type(method).__name__):
+            ok = self._validate(cmd, method)
+        if not ok:
             return True  # dropped; next round recomputes
         return self._execute(cmd, method)
 
@@ -409,6 +454,10 @@ class DisruptionController:
 
     # -- execution (controller.go executeCommand:188) --------------------
     def _execute(self, cmd, method=None) -> bool:
+        with obs.span("disrupt.execute", action=cmd.action, reason=cmd.reason):
+            return self._execute_inner(cmd, method)
+
+    def _execute_inner(self, cmd, method=None) -> bool:
         # 1. taint candidates so nothing schedules onto them (:196)
         for c in cmd.candidates:
             node = self.store.try_get("nodes", c.name)
@@ -419,6 +468,35 @@ class DisruptionController:
             nc = claim.to_node_claim()
             self.store.create("nodeclaims", nc)
             cmd.replacement_names.append(nc.name)
+        # 2b. open the command's fleet-ledger entry: predicted savings at
+        # execution time, the cause chain every launch/drain event will
+        # carry, and the pending claim/node sets whose completion
+        # reconciles predicted vs realized (obs/timeline.py)
+        from karpenter_tpu_torch.controllers.disruption.methods import (
+            candidate_prices,
+            predicted_command_savings,
+        )
+        from karpenter_tpu_torch.obs import timeline
+
+        cmd.predicted_savings = predicted_command_savings(cmd)
+        cause = {
+            "site": getattr(method, "decision_site", "") or "",
+            "rung": getattr(method, "last_rung", "") or "",
+            "reason": cmd.reason,
+        }
+        cause["command"] = timeline.begin_command(
+            site=cause["site"], rung=cause["rung"], reason=cmd.reason,
+            predicted=cmd.predicted_savings,
+            retired_rate=candidate_prices(cmd.candidates),
+            claims=cmd.replacement_names,
+            nodes=[c.name for c in cmd.candidates],
+            registry=self.registry,
+        )
+        for name in cmd.replacement_names:
+            timeline.pend_cause(name, cause)
+        for c in cmd.candidates:
+            timeline.record_event("drain", c.name, cause=cause,
+                                  pods=len(c.reschedulable_pods))
         # 3. fence the state (:223)
         self.cluster.mark_for_deletion(*[c.provider_id for c in cmd.candidates])
         # 4. orchestrate deletion (:225)

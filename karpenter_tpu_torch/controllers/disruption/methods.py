@@ -11,10 +11,11 @@ and ≥15 cheaper types to prevent churn).
 
 The port's copy of ``karpenter_tpu/controllers/disruption/methods.py``
 (imports changed; ``TorchSolver`` where the JAX package tests for
-``TPUSolver``). Left out: the flight-recorder spans, anomalies and
-decision-ledger verdicts, and the capsule seams (ROADMAP.md Queue 1 items
-1 and 2) — each method keeps its rung and reason on itself instead
-(``last_rung``/``last_reason``, ``last_probe``/``last_probe_reason``).
+``TPUSolver``). Each ladder records its ``(site, rung, reason)`` verdict
+on the decision ledger (``disrupt.interruption``, ``consolidate.global``,
+``probe.confirm``; obs/decisions.py) and its spans and anomalies on the
+flight recorder, at the JAX package's sites. Left out: the capsule seams
+(ROADMAP.md Queue 1 item 1).
 
 A device probe's own inexpressible shapes fall back to the sequential
 search as in the JAX package, and so does any host-side exception, which
@@ -27,6 +28,7 @@ back).
 
 from __future__ import annotations
 
+from karpenter_tpu_torch import obs
 from karpenter_tpu_torch.api import labels as wk
 from karpenter_tpu_torch.api.nodeclaim import COND_DRIFTED, COND_EMPTY
 from karpenter_tpu_torch.api.nodepool import (
@@ -56,6 +58,10 @@ class Method:
     # consolidation methods honor the isConsolidated fence: skipped while
     # cluster state is unchanged since the last fruitless search
     is_consolidation: bool = False
+    # the decision-ledger site whose verdict shipped this method's
+    # commands — the fleet ledger stamps it on every command's cause
+    # chain (obs/timeline.py); empty for methods without a ladder site
+    decision_site: str = ""
 
     def __init__(self, ctx):
         self.ctx = ctx  # DisruptionContext: provisioner, cluster, store, clock, options
@@ -104,10 +110,11 @@ class Drift(Method):
         )
         inputs = cache.inputs_for(ctx.cluster) if cache is not None else None
         for c in drifted:
-            sim = simulate_scheduling(
-                self.ctx.provisioner, self.ctx.cluster, self.ctx.store,
-                [c], inputs=inputs, bundle=bundle,
-            )
+            with obs.span("confirm.simulate", method="drift"):
+                sim = simulate_scheduling(
+                    self.ctx.provisioner, self.ctx.cluster, self.ctx.store,
+                    [c], inputs=inputs, bundle=bundle,
+                )
             if not sim.all_pods_scheduled():
                 continue
             return Command([c], replacements=sim.new_claims, reason=self.reason)
@@ -178,14 +185,14 @@ class InterruptionDrain(Method):
     Interruption is INVOLUNTARY disruption: budgets are not consulted
     and nodes the candidate filters exclude (do-not-disrupt,
     PDB-blocked) are still drained — a blocked eviction retries until the
-    deadline kills the node. Each round leaves its verdict in
-    ``last_rung``/``last_reason``."""
+    deadline kills the node. Every round records one
+    ``disrupt.interruption`` decision-ledger verdict (closed enums,
+    obs/decisions.py)."""
 
     reason = REASON_INTERRUPTED
     needs_validation = False  # a validation TTL would eat the deadline
-    last_rung: str = ""  # "proactive" | "reactive" | "degraded"
-    # "ok", "delete-only", "reactive-fallback", "deadline-degraded"
-    last_reason: str = ""
+    decision_site = "disrupt.interruption"
+    last_rung: str = ""  # "proactive" | "reactive" | "degraded" (tests)
 
     @property
     def uses_bundle(self) -> bool:
@@ -197,11 +204,14 @@ class InterruptionDrain(Method):
         return cluster is not None and cluster.interruptions_pending()
 
     def _verdict(self, rung, reason="ok"):
+        from karpenter_tpu_torch.obs import decisions
+
         self.last_rung = rung
-        self.last_reason = reason
+        decisions.record_decision("disrupt.interruption", rung, reason,
+                                  registry=self.ctx.registry)
 
     def compute_command(self, candidates, budgets):
-        self.last_rung = self.last_reason = ""
+        self.last_rung = ""
         noticed = self._noticed(candidates)
         if not noticed:
             return None
@@ -242,10 +252,12 @@ class InterruptionDrain(Method):
             if cache is not None else None
         )
         inputs = cache.inputs_for(ctx.cluster) if cache is not None else None
-        sim = simulate_scheduling(
-            ctx.provisioner, ctx.cluster, ctx.store, cands,
-            inputs=inputs, bundle=bundle,
-        )
+        with obs.span("confirm.simulate", method="interruption",
+                      noticed=len(cands), absorbed=absorbed):
+            sim = simulate_scheduling(
+                ctx.provisioner, ctx.cluster, ctx.store, cands,
+                inputs=inputs, bundle=bundle,
+            )
         if ctx.clock.now() + min_lead > deadline:
             # a deadline arrived mid-solve: degrade the now-urgent subset
             # instead of wedging (the rest retries next poll)
@@ -345,8 +357,9 @@ class InterruptionDrain(Method):
                 return None
             need = contrib.sum(axis=0)
             row = (bundle.base + need)[None, :]
-            placed_g, used = bundle.dispatch(
-                row, [np.asarray(cols, dtype=np.intp)])
+            with obs.span("interruption.probe", candidates=len(cands)):
+                placed_g, used = bundle.dispatch(
+                    row, [np.asarray(cols, dtype=np.intp)])
             G = bundle.snap.G
             return bool((placed_g[0, :G] >= need).all()
                         and int(used[0]) == 0)
@@ -355,7 +368,7 @@ class InterruptionDrain(Method):
         except Exception:
             import logging
 
-            _probe_failure(ctx, "interruption")
+            _probe_failure(ctx, "interruption")  # counted, no verdict
             logging.getLogger(__name__).warning(
                 "interruption absorb probe failed; the confirming "
                 "simulation decides alone", exc_info=True)
@@ -495,6 +508,34 @@ def candidate_prices(candidates) -> float | None:
     return total
 
 
+def predicted_command_savings(cmd) -> float | None:
+    """Criterion-predicted savings RATE of a command at execution time:
+    the candidates' summed effective price minus the cheapest effective
+    offering each replacement claim can still launch as — the number the
+    fleet ledger reconciles against realized savings when the command
+    completes (obs/timeline.py). None when either side is unpriceable
+    (the :func:`candidate_prices` stance: an unknown price cannot anchor
+    a reconciliation)."""
+    current = candidate_prices(cmd.candidates)
+    if current is None:
+        return None
+    from karpenter_tpu_torch.cloudprovider.types import effective_price, risk_lambda
+
+    lam = risk_lambda()  # hoisted: one env read, not one per offering
+    replacement = 0.0
+    for claim in cmd.replacements:
+        best = None
+        for it in claim.instance_types:
+            for o in it.offerings.available().compatible(claim.requirements):
+                p = effective_price(o, lam)
+                if p > 0 and (best is None or p < best):
+                    best = p
+        if best is None:
+            return None
+        replacement += best
+    return current - replacement
+
+
 def compute_consolidation(ctx, candidates) -> Command | None:
     """Shared consolidation core (consolidation.go:112-296)."""
     cache = getattr(ctx, "snapshot_cache", None)
@@ -564,7 +605,7 @@ def compute_consolidation(ctx, candidates) -> Command | None:
     return Command(candidates, replacements=[replacement], reason=REASON_UNDERUTILIZED)
 
 
-def confirm_consolidation(ctx, cands, method_label):
+def confirm_consolidation(ctx, cands, method_label, **span_attrs):
     """ONE real simulation of a candidate set, with the same-type price
     filter applied to any replacement — the confirm contract shared
     verbatim by the MultiNode prefix and the global joint set (ONE copy,
@@ -578,8 +619,9 @@ def confirm_consolidation(ctx, cands, method_label):
         m.DISRUPTION_HOST_CONFIRMS,
         "confirming host simulations run by consolidation methods",
     ).inc(method=method_label)
-    with ctx.registry.measure(m.DISRUPTION_CONFIRM_DURATION,
-                              method=method_label):
+    with obs.span("confirm.simulate", method=method_label, **span_attrs), \
+            ctx.registry.measure(m.DISRUPTION_CONFIRM_DURATION,
+                                 method=method_label):
         cmd = compute_consolidation(ctx, cands)
     if cmd is None or cmd.action == "no-op":
         return None
@@ -680,13 +722,16 @@ def _cross_capacity_anchor(c) -> float | None:
     return best
 
 
-def _probe_failure(ctx, method_label):
-    """ONE copy of the probe-failure diagnosis, shared by the
-    per-candidate probes and the global joint solve. Falling back is by
-    design (the probes are prefilters), but the reason must stay
-    diagnosable — a permanently-failing probe silently costs every
-    consolidation round its batched dispatch; the counter makes it
-    visible on the scrape."""
+def _probe_failure(ctx, method_label, site=None):
+    """ONE copy of the probe-failure diagnosis (counter + anomaly +
+    sequential verdict), shared by the per-candidate probes and the
+    global joint solve. Falling back is by design (the probes are
+    prefilters), but the reason must stay diagnosable — a permanently-
+    failing probe silently costs every consolidation round its batched
+    dispatch; the counter makes it visible on the scrape. The
+    interruption drain's absorb probe passes no ``site``: it only counts,
+    as the JAX package's records no anomaly or verdict there."""
+    from karpenter_tpu_torch.obs import decisions
     from karpenter_tpu_torch.operator import metrics as m
 
     ctx.registry.counter(
@@ -694,41 +739,57 @@ def _probe_failure(ctx, method_label):
         "device consolidation probes that fell back to the "
         "sequential search",
     ).inc(method=method_label)
+    if site is None:
+        return
+    # anomaly trigger: a fallback costs the round its batched dispatch
+    # — the flight recorder keeps this round's span tree so the
+    # failing stage is attributable from the dump, not just counted
+    obs.anomaly("probe-fallback", registry=ctx.registry,
+                method=method_label)
+    decisions.record_decision(site, "sequential", "probe-error",
+                              registry=ctx.registry)
 
 
 def _device_probe(ctx, probe_fn, method_label, cands, pool):
     """Shared probe runner for both per-candidate consolidation methods:
     the TorchSolver gate, the exception fallback (`_probe_failure`), and
-    the batch-size histogram. Returns ``(answer, reason)``: the probe's
-    answer or None, and ``ok``, ``no-device``, ``probe-error`` or
-    ``inexpressible``."""
+    the batch-size histogram. The sequential verdicts (``no-device``,
+    ``probe-error``, ``inexpressible``) are recorded here; the caller
+    records the ladder's own."""
     from karpenter_tpu_torch.models.solver import TorchSolver
+    from karpenter_tpu_torch.obs import decisions
 
     if not isinstance(getattr(ctx.provisioner, "solver", None), TorchSolver):
-        return None, "no-device"
+        decisions.record_decision("probe.confirm", "sequential", "no-device",
+                                  registry=ctx.registry)
+        return None
     try:
-        out = probe_fn(
-            ctx.provisioner, ctx.cluster, ctx.store, cands,
-            cache=getattr(ctx, "snapshot_cache", None),
-            registry=ctx.registry,
-            # the snapshot is built over the FULL consolidatable pool so
-            # MultiNode's and SingleNode's probes share one tensorization
-            build_candidates=pool,
-        )
+        with obs.span("probe", method=method_label, candidates=len(cands)):
+            out = probe_fn(
+                ctx.provisioner, ctx.cluster, ctx.store, cands,
+                cache=getattr(ctx, "snapshot_cache", None),
+                registry=ctx.registry,
+                # the snapshot is built over the FULL consolidatable pool
+                # so MultiNode's and SingleNode's probes share one
+                # tensorization
+                build_candidates=pool,
+            )
     except DEVICE_FAULTS:
         raise
     except Exception:
         import logging
 
-        _probe_failure(ctx, method_label)
+        _probe_failure(ctx, method_label, "probe.confirm")
         logging.getLogger(__name__).warning(
             "device consolidation probe (%s) failed; using the sequential "
             "search", method_label, exc_info=True)
-        return None, "probe-error"
+        return None
     if out is None:
         # the probe could not express the scenario (no bundle, invisible
         # candidate, unmapped pods): the method runs the reference search
-        return None, "inexpressible"
+        decisions.record_decision("probe.confirm", "sequential",
+                                  "inexpressible", registry=ctx.registry)
+        return None
     from karpenter_tpu_torch.operator import metrics as m
 
     ctx.registry.histogram(
@@ -736,7 +797,7 @@ def _device_probe(ctx, probe_fn, method_label, cands, pool):
         "counterfactual rows ranked per batched probe dispatch",
         buckets=m.PROBE_BATCH_BUCKETS,
     ).observe(len(cands), method=method_label)
-    return out, "ok"
+    return out
 
 
 # sentinel distinguishing a scan the wall clock cut short from one that
@@ -803,9 +864,10 @@ class GlobalConsolidation(Method):
     and probe-vs-host confirm disagreements all fall through to it (this
     method returns None and the method order does the rest), so the
     shipped end state is never worse than the reference's. Every
-    resolution leaves its verdict in ``last_rung``/``last_reason``:
-    joint/ok when the set ships, the ladder rung with its fallback cause
-    otherwise, sequential when no device solve ran at all.
+    resolution records one ``consolidate.global`` ledger verdict
+    (obs/decisions.py): joint/ok when the set ships, the ladder rung with
+    its fallback cause otherwise, sequential when no device solve ran at
+    all.
     ``KARPENTER_GLOBAL_CONSOLIDATION=0`` disables the mode (the
     ladder then owns every round, as before the global mode existed)."""
 
@@ -813,8 +875,8 @@ class GlobalConsolidation(Method):
     needs_validation = True
     is_consolidation = True
     uses_bundle = True  # the controller prewarms the round's snapshot
+    decision_site = "consolidate.global"
     last_rung: str = ""  # "joint" | "ladder" | "sequential" (tests + perf)
-    last_reason: str = ""  # the verdict's cause ("ok", "relax", ...)
     last_plan = None  # the round's JointPlan (tests + observability)
     # when True the controller closes the consolidation round after this
     # method returns None: the joint dispatch PROVED round-wide
@@ -833,8 +895,11 @@ class GlobalConsolidation(Method):
     _singles_armed: bool = False
 
     def _verdict(self, rung, reason="ok"):
+        from karpenter_tpu_torch.obs import decisions
+
         self.last_rung = rung
-        self.last_reason = reason
+        decisions.record_decision("consolidate.global", rung, reason,
+                                  registry=self.ctx.registry)
 
     def compute_command(self, candidates, budgets):
         self.last_plan = None
@@ -862,27 +927,31 @@ class GlobalConsolidation(Method):
         try:
             from karpenter_tpu_torch.ops.consolidate import joint_retirement_plan
 
-            plan = joint_retirement_plan(
-                self.ctx.provisioner, self.ctx.cluster, self.ctx.store,
-                cands,
-                cache=getattr(self.ctx, "snapshot_cache", None),
-                registry=self.ctx.registry,
-                build_candidates=pool,
-                # singles hint: any round after the process's first
-                # dispatch (or on small fleets, where the rows are
-                # near-free) carries the per-candidate rows so the
-                # verdict can seed/fence SingleNode too; mid-transition
-                # bundles force them regardless (joint_retirement_plan)
-                want_singles=(self._singles_armed
-                              or len(cands) <= GLOBAL_SINGLES_MAX),
-            )
+            with obs.span("global.probe", candidates=len(cands)):
+                plan = joint_retirement_plan(
+                    self.ctx.provisioner, self.ctx.cluster, self.ctx.store,
+                    cands,
+                    cache=getattr(self.ctx, "snapshot_cache", None),
+                    registry=self.ctx.registry,
+                    build_candidates=pool,
+                    # singles hint: any round after the process's first
+                    # dispatch (or on small fleets, where the rows are
+                    # near-free) carries the per-candidate rows so the
+                    # verdict can seed/fence SingleNode too;
+                    # mid-transition bundles force them regardless
+                    # (joint_retirement_plan)
+                    want_singles=(self._singles_armed
+                                  or len(cands) <= GLOBAL_SINGLES_MAX),
+                )
         except DEVICE_FAULTS:
             raise
         except Exception:
             import logging
 
-            self._verdict("sequential", "probe-error")
-            _probe_failure(self.ctx, "global")
+            # _probe_failure records the sequential verdict itself (the
+            # shared diagnosis path — counter, anomaly, verdict)
+            self.last_rung = "sequential"
+            _probe_failure(self.ctx, "global", "consolidate.global")
             logging.getLogger(__name__).warning(
                 "device consolidation probe (%s) failed; using the "
                 "sequential search", "global", exc_info=True)
@@ -941,6 +1010,9 @@ class GlobalConsolidation(Method):
             # probe-vs-host disagreement: the one confirm failed, so the
             # per-candidate ladder (the oracle) decides this round — the
             # shipped command can never differ from the reference's answer
+            obs.anomaly("global-confirm-mismatch",
+                        registry=self.ctx.registry,
+                        selected=len(plan.selected), dropped=plan.dropped)
             self._verdict("ladder", "confirm-mismatch")
             return None
         if plan.displacement:
@@ -981,7 +1053,8 @@ class GlobalConsolidation(Method):
         """The round's ONE real simulation of the joint set — the shared
         :func:`confirm_consolidation` contract, identical to the one the
         MultiNode prefix pays."""
-        return confirm_consolidation(self.ctx, selected, "global")
+        return confirm_consolidation(self.ctx, selected, "global",
+                                     selected=len(selected))
 
 
 class MultiNodeConsolidation(Method):
@@ -1011,21 +1084,27 @@ class MultiNodeConsolidation(Method):
     # "seeded" means the answer came from the round's joint dispatch
     # (JointSeed) without paying a second device dispatch
     last_probe: str = ""
-    # the probe verdict's cause: "ok", "joint-seeded", "non-definitive",
-    # or why the search went sequential ("no-device", "probe-error",
-    # "inexpressible")
-    last_probe_reason: str = ""
     last_host_confirms: int = 0  # host simulations this round (tests + perf)
     _seeded: bool = False
 
     def compute_command(self, candidates, budgets):
         # reset BEFORE the search: an early return inside _compute (fewer
-        # than 2 candidates) must not leave last round's counters behind
+        # than 2 candidates) must not leave last round's counter behind to
+        # fire a spurious anomaly on a quiet round
         self.last_host_confirms = 0
         self.last_probe = ""
-        self.last_probe_reason = ""
         self._seeded = False
-        return self._compute(candidates, budgets)
+        cmd = self._compute(candidates, budgets)
+        if self.last_host_confirms > 1:
+            # anomaly trigger: the batched confirm ladder targets exactly
+            # one host simulation per round — more means probe-vs-host
+            # disagreement or a non-definitive ladder, and the round's
+            # trace shows which confirm burned the time
+            obs.anomaly(
+                "multi-host-confirms", registry=self.ctx.registry,
+                confirms=self.last_host_confirms, probe=self.last_probe,
+            )
+        return cmd
 
     def _compute(self, candidates, budgets):
         pool = _candidate_order(self.ctx, _consolidatable(candidates))
@@ -1038,14 +1117,22 @@ class MultiNodeConsolidation(Method):
         if probed is not None:
             k, definitive = probed
             self.last_probe = "seeded" if self._seeded else "device"
-            # a definitive ladder pays ONE confirming simulation; a
+            # the round's probe.confirm verdict (obs/decisions.py): a
+            # definitive ladder pays ONE confirming simulation; a
             # non-definitive one keeps the gallop/search around the seed.
             # Seeded answers (the joint dispatch already ranked these
             # prefixes this generation — no second dispatch) carry the
-            # joint-seeded reason
-            self.last_probe_reason = (
-                "joint-seeded" if self._seeded
-                else "ok" if definitive else "non-definitive")
+            # joint-seeded reason so the skipped-probe path is accounted,
+            # never silent. The sequential rungs were recorded by
+            # _device_probe.
+            from karpenter_tpu_torch.obs import decisions
+
+            decisions.record_decision(
+                "probe.confirm",
+                "definitive" if definitive else "gallop",
+                ("joint-seeded" if self._seeded
+                 else "ok" if definitive else "non-definitive"),
+                registry=self.ctx.registry)
             if k < 2:
                 # paranoia confirm of the smallest prefix guards the
                 # probe's residual false-negative corner (f32 rounding);
@@ -1084,16 +1171,16 @@ class MultiNodeConsolidation(Method):
         if seeded is not None:
             self._seeded = True
             return seeded
-        out, self.last_probe_reason = _device_probe(
-            self.ctx, batched_feasible_prefix, "multi", cands, pool)
-        return out
+        return _device_probe(self.ctx, batched_feasible_prefix, "multi",
+                             cands, pool)
 
     def _confirm(self, prefix):
         """One real simulation of a candidate prefix (the shared
         :func:`confirm_consolidation` contract) with this method's
         host-confirm streak accounting on top."""
         self.last_host_confirms += 1
-        return confirm_consolidation(self.ctx, prefix, "multi")
+        return confirm_consolidation(self.ctx, prefix, "multi",
+                                     prefix=len(prefix))
 
     def _timed_out(self) -> bool:
         return _search_timed_out(self.ctx, self._deadline, "multi")
@@ -1143,12 +1230,10 @@ class SingleNodeConsolidation(Method):
     uses_bundle = True
     # "device" | "seeded" | "sequential" (observability + tests)
     last_probe: str = ""
-    last_probe_reason: str = ""  # as MultiNodeConsolidation's
     _seeded: bool = False
 
     def compute_command(self, candidates, budgets):
         self._seeded = False
-        self.last_probe_reason = ""
         pool = _candidate_order(self.ctx, _consolidatable(candidates))
         cands = within_budget(budgets, self.reason, pool)
         if not cands:
@@ -1161,9 +1246,17 @@ class SingleNodeConsolidation(Method):
             return None if res is _TIMED_OUT else res
         feas, definitive = probed
         self.last_probe = "seeded" if self._seeded else "device"
-        self.last_probe_reason = (
-            "joint-seeded" if self._seeded
-            else "ok" if definitive else "non-definitive")
+        # one probe.confirm verdict per ladder descent, mirroring
+        # MultiNode's (sequential rungs recorded by _device_probe;
+        # joint-seeded answers paid no dispatch of their own)
+        from karpenter_tpu_torch.obs import decisions
+
+        decisions.record_decision(
+            "probe.confirm",
+            "definitive" if definitive else "gallop",
+            ("joint-seeded" if self._seeded
+             else "ok" if definitive else "non-definitive"),
+            registry=self.ctx.registry)
         # confirm hits in disruption-cost order; probe misses are only
         # SKIPPED, never discarded: when a hit confirms, any miss that
         # precedes it is back-checked first so a probe false negative can
@@ -1237,8 +1330,9 @@ class SingleNodeConsolidation(Method):
             m.DISRUPTION_HOST_CONFIRMS,
             "confirming host simulations run by consolidation methods",
         ).inc(method="single")
-        with self.ctx.registry.measure(m.DISRUPTION_CONFIRM_DURATION,
-                                       method="single"):
+        with obs.span("confirm.simulate", method="single"), \
+                self.ctx.registry.measure(m.DISRUPTION_CONFIRM_DURATION,
+                                          method="single"):
             return compute_consolidation(self.ctx, [c])
 
     def _timed_out(self, deadline) -> bool:
@@ -1251,6 +1345,5 @@ class SingleNodeConsolidation(Method):
         if seeded is not None:
             self._seeded = True
             return seeded
-        out, self.last_probe_reason = _device_probe(
-            self.ctx, batched_single_feasible, "single", cands, pool)
-        return out
+        return _device_probe(self.ctx, batched_single_feasible, "single",
+                             cands, pool)

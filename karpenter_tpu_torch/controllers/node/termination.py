@@ -16,19 +16,22 @@ full PDB recount per eviction. Now each poll builds ONE pods-by-node
 index, collects every node's evictable pods, and ships them through the
 store's :meth:`~karpenter_tpu_torch.kube.store.KubeStore.evict_wave` — one
 PDB-checked wave with memoized allowances, semantically identical to
-sequential per-pod evictions in the same order. The wave feeds the module
-``STATS`` (``evict_ms``, ``drain_ms``).
+sequential per-pod evictions in the same order. The wave opens a
+``drain`` flight-recorder round (``drain.evict`` / ``drain.finalize``
+spans), records the fleet ledger's ``evict`` and ``retire`` events, and
+feeds the module ``STATS`` (``evict_ms``, ``drain_ms``).
 
 The port's copy of ``karpenter_tpu/controllers/node/termination.py``
-(imports changed), without the flight-recorder spans and the fleet
-ledger's evict/retire events (ROADMAP.md Queue 1 item 1).
+(imports changed).
 """
 
 from __future__ import annotations
 
 import time
 
+from karpenter_tpu_torch import obs
 from karpenter_tpu_torch.api import labels as wk
+from karpenter_tpu_torch.obs import timeline
 from karpenter_tpu_torch.controllers.disruption.queue import add_disruption_taint
 from karpenter_tpu_torch.utils import pod as pod_util
 
@@ -65,7 +68,15 @@ class NodeTerminationController:
         if not deleting:
             return False
         t0 = time.perf_counter()
-        progressed = self._drain_wave(deleting)
+        # the drain wave is the root of its own reconcile round, like the
+        # binder's pass: the post-command orchestration's wall clock is
+        # attributable from its span tree instead of vanishing between
+        # disruption rounds
+        with obs.round_trace("drain", registry=self.registry,
+                             nodes=len(deleting)):
+            progressed = self._drain_wave(deleting)
+            if not progressed:
+                obs.discard_round()  # pure waiting: no story this tick
         STATS["drain_ms"] += (time.perf_counter() - t0) * 1000.0
         return progressed
 
@@ -73,48 +84,56 @@ class NodeTerminationController:
         progressed = False
         plan = []  # (node, evictable pods) in store order
         wave = []
-        # ONE pods-by-node index per poll instead of a full pod scan
-        # per deleting node
-        pods_by_node: dict = {}
-        for pod in self.store.list("pods"):
-            if pod.node_name:
-                pods_by_node.setdefault(pod.node_name, []).append(pod)
-        for node in deleting:
-            if add_disruption_taint(self.store, node):
-                progressed = True
-            evictable = [
-                pod
-                for pod in pods_by_node.get(node.name, ())
-                if pod.metadata.deletion_timestamp is None
-                and not pod.owned_by_daemonset()
-                and not pod_util.is_owned_by_node(pod)
-                and pod_util.is_evictable(pod)
-            ]
-            plan.append((node, evictable))
-            wave.extend(evictable)
-        t1 = time.perf_counter()
-        evicted, blocked = self.store.evict_wave(wave)
-        STATS["evict_ms"] += (time.perf_counter() - t1) * 1000.0
-        STATS["evict_waves"] += 1
-        STATS["evicted"] += len(evicted)
-        STATS["evict_blocked"] += len(blocked)
+        with obs.span("drain.evict", kind="host", nodes=len(deleting)):
+            # ONE pods-by-node index per poll instead of a full pod scan
+            # per deleting node
+            pods_by_node: dict = {}
+            for pod in self.store.list("pods"):
+                if pod.node_name:
+                    pods_by_node.setdefault(pod.node_name, []).append(pod)
+            for node in deleting:
+                if add_disruption_taint(self.store, node):
+                    progressed = True
+                evictable = [
+                    pod
+                    for pod in pods_by_node.get(node.name, ())
+                    if pod.metadata.deletion_timestamp is None
+                    and not pod.owned_by_daemonset()
+                    and not pod_util.is_owned_by_node(pod)
+                    and pod_util.is_evictable(pod)
+                ]
+                plan.append((node, evictable))
+                wave.extend(evictable)
+            t1 = time.perf_counter()
+            evicted, blocked = self.store.evict_wave(wave)
+            STATS["evict_ms"] += (time.perf_counter() - t1) * 1000.0
+            STATS["evict_waves"] += 1
+            STATS["evicted"] += len(evicted)
+            STATS["evict_blocked"] += len(blocked)
         if evicted:
             progressed = True
         blocked_keys = {p.key() for p in blocked}
+        # evict events stage on the drain round's trace: an eviction always
+        # means progress, so the round keeps and the events commit
         for node, evictable in plan:
-            if evictable:
-                # still draining; PDB-blocked pods retry on a later
-                # poll (eviction.go 429 path)
-                if self.recorder is not None:
-                    for pod in evictable:
-                        if pod.key() in blocked_keys:
-                            self.recorder.publish(
-                                "EvictionBlocked",
-                                f"pdb blocks eviction of {pod.key()}",
-                            )
-                continue
-            if self._finalize(node):
-                progressed = True
+            n = sum(1 for p in evictable if p.key() not in blocked_keys)
+            if n:
+                timeline.record_event("evict", node.name, pods=n)
+        with obs.span("drain.finalize", kind="host"):
+            for node, evictable in plan:
+                if evictable:
+                    # still draining; PDB-blocked pods retry on a later
+                    # poll (eviction.go 429 path)
+                    if self.recorder is not None:
+                        for pod in evictable:
+                            if pod.key() in blocked_keys:
+                                self.recorder.publish(
+                                    "EvictionBlocked",
+                                    f"pdb blocks eviction of {pod.key()}",
+                                )
+                    continue
+                if self._finalize(node):
+                    progressed = True
         return progressed
 
     def _finalize(self, node) -> bool:
@@ -145,6 +164,13 @@ class NodeTerminationController:
         pool = node.labels.get(wk.NODEPOOL_LABEL, "")
         self.registry.counter(m.NODES_TERMINATED, "nodes terminated").inc(
             nodepool=pool)
+        # retire closes the node's timeline (and counts a reclaim when an
+        # interrupt notice preceded it — the observed interruption feed)
+        timeline.record_event(
+            "retire", node.name, pool=pool,
+            instance_type=node.labels.get(wk.INSTANCE_TYPE_LABEL, ""),
+            zone=node.labels.get(wk.TOPOLOGY_ZONE_LABEL, ""),
+            registry=self.registry)
         if node.metadata.deletion_timestamp is not None:
             self.registry.histogram(
                 m.NODE_TERMINATION_DURATION,

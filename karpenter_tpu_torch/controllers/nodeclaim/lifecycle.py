@@ -11,8 +11,8 @@ retried if registration doesn't happen within the liveness TTL, and on
 deletion the finalizer tears down the cloud instance then the node.
 
 The port's copy of ``karpenter_tpu/controllers/nodeclaim/lifecycle.py``
-(imports changed), without the fleet ledger's launch and registration
-events (ROADMAP.md Queue 1 item 1).
+(imports changed): a launch and a registration each record a fleet-ledger
+event (obs/timeline.py).
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ from karpenter_tpu_torch.api.nodeclaim import (
     COND_REGISTERED,
 )
 from karpenter_tpu_torch.cloudprovider.types import InsufficientCapacityError, NodeClaimNotFoundError
+from karpenter_tpu_torch.obs import timeline
 from karpenter_tpu_torch.operator import metrics as m
 from karpenter_tpu_torch.scheduling.taints import KNOWN_EPHEMERAL_TAINTS
 
@@ -73,6 +74,7 @@ class NodeClaimLifecycleController:
             return progressed
         finally:
             self._nodes_by_pid = None
+            self._catalog = None
 
     def reconcile(self, claim) -> bool:
         if claim.metadata.deletion_timestamp is not None:
@@ -108,6 +110,11 @@ class NodeClaimLifecycleController:
         claim.set_condition(COND_LAUNCHED, now=self.clock.now())
         self.store.update("nodeclaims", claim)
         self._count(m.NODECLAIMS_LAUNCHED, claim)
+        timeline.note_launch(
+            claim.metadata.name, node=claim.status.node_name,
+            price=self._launch_price(claim.metadata.labels),
+            registry=self.registry,
+            nodepool=claim.metadata.labels.get(wk.NODEPOOL_LABEL, ""))
         return True
 
     # -- registration (lifecycle/registration.go:43) ---------------------
@@ -130,6 +137,9 @@ class NodeClaimLifecycleController:
         self.store.update("nodeclaims", claim)
         self._count(m.NODECLAIMS_REGISTERED, claim)
         self._count(m.NODES_CREATED, claim)  # node joined the cluster
+        timeline.record_event("register", node.name,
+                              claim=claim.metadata.name,
+                              registry=self.registry)
         return True
 
     # -- initialization (lifecycle/initialization.go:49) -----------------
@@ -193,6 +203,22 @@ class NodeClaimLifecycleController:
         return True
 
     _nodes_by_pid = None  # per-poll providerID index (see poll)
+    _catalog = None  # per-poll CatalogView memo (see poll)
+
+    def _launch_price(self, labels) -> float:
+        """Effective hourly price of the launched offering — the fleet
+        ledger's launch-rate input (obs/timeline.py). The CatalogView is
+        memoized per poll like ``_nodes_by_pid``; a direct ``reconcile``
+        call pays one transient view."""
+        from karpenter_tpu_torch.cloudprovider.types import CatalogView, effective_price
+
+        view = self._catalog
+        if view is None:
+            view = CatalogView(self.store.list("nodepools"), self.cloud)
+            if self._nodes_by_pid is not None:  # inside a poll: memoize
+                self._catalog = view
+        off = view.offering(labels)
+        return float(effective_price(off)) if off is not None else 0.0
 
     def _node_for(self, claim):
         if not claim.status.provider_id:

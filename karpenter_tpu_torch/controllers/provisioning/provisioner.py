@@ -13,12 +13,14 @@ provisioner.py`` (imports changed). Its solver defaults to
 batch carrying an admission marker (a pod priority or class, a gang
 annotation, a non-zero global-default PriorityClass) goes through the
 port's admission plane (``karpenter_tpu_torch.admission``), as in the
-JAX package. Left out: the flight-recorder spans and anomalies
-(ROADMAP.md Queue 1 item 1).
+JAX package. Each live solve is a ``provision`` flight-recorder round
+with the JAX package's spans, and a batch that sends pods to the host
+engine for any but the calibrated reasons marks it ``host-routed``.
 """
 
 from __future__ import annotations
 
+from karpenter_tpu_torch import obs
 from karpenter_tpu_torch.api import labels as wk
 from karpenter_tpu_torch.controllers.provisioning.batcher import Batcher
 from karpenter_tpu_torch.models import ClaimTemplate
@@ -228,11 +230,16 @@ class Provisioner:
             if not synced:
                 self.batcher.trigger()  # retry next round
                 return False
-        with self.registry.measure(m.SCHEDULING_DURATION):
-            results = self.schedule()
-        if results is None:
-            return False
-        return self.create_node_claims(results)
+        # one trace per solve round: the flight recorder keeps the span
+        # tree and dumps it if the round trips an anomaly (host-routed
+        # pods being the provisioning trigger)
+        with obs.round_trace("provision", registry=self.registry):
+            with self.registry.measure(m.SCHEDULING_DURATION):
+                results = self.schedule()
+            if results is None:
+                return False
+            with obs.span("provision.create"):
+                return self.create_node_claims(results)
 
     def pending_pods(self) -> list:
         """Provisionable pods, excluding ones nominated onto capacity that
@@ -266,8 +273,9 @@ class Provisioner:
         if state_nodes is None:
             state_nodes = self.cluster.nodes() if self.cluster is not None else []
         if pods is None:
-            pods = self.pending_pods()
-            pods.extend(self.deleting_node_pods(state_nodes, pods))
+            with obs.span("provision.pending"):
+                pods = self.pending_pods()
+                pods.extend(self.deleting_node_pods(state_nodes, pods))
             if not pods:
                 return None
         # disruption simulations may hand in the round's cached solver
@@ -277,9 +285,10 @@ class Provisioner:
         if inputs is not None:
             templates, its_by_pool, overhead, limits, domains = inputs
         else:
-            templates, its_by_pool, overhead, limits, domains = (
-                self.solver_inputs()
-            )
+            with obs.span("provision.inputs", kind="cache"):
+                templates, its_by_pool, overhead, limits, domains = (
+                    self.solver_inputs()
+                )
 
         # pods with unresolvable PVCs can't schedule: report and drop from
         # the batch (ValidatePersistentVolumeClaims, volumetopology.go:155)
@@ -291,13 +300,15 @@ class Provisioner:
 
         vt = VolumeTopology(self.store)
         valid_pods = []
-        for p in pods:
-            try:
-                vt.validate(p)
-                valid_pods.append(p)
-            except PVCError as e:
-                if self.recorder is not None:
-                    self.recorder.publish("FailedScheduling", str(e), obj=p)
+        with obs.span("provision.volumes", pods=len(pods)):
+            for p in pods:
+                try:
+                    vt.validate(p)
+                    valid_pods.append(p)
+                except PVCError as e:
+                    if self.recorder is not None:
+                        self.recorder.publish("FailedScheduling", str(e),
+                                              obj=p)
         # provisioning/metrics.go: queue depth at solve entry + pods the
         # batch dropped as unresolvable. Only the LIVE batch reports —
         # disruption counterfactuals must not clobber the gauges (the
@@ -321,16 +332,18 @@ class Provisioner:
             if self.cluster is not None
             else StoreClusterView(self.store)
         )
-        topology = Topology(cluster=view, domains=domains, pods=pods)
-        if enodes_base is not None:
-            # disruption fast path (helpers.simulate_scheduling): the
-            # round's snapshot bundle supplies generation-current
-            # ExistingNode prototypes; forking re-binds them to THIS
-            # solve's topology and fresh mutable state, skipping the O(E)
-            # constructor sweep per confirming simulation
-            existing_nodes = [en.fork(topology) for en in enodes_base]
-        else:
-            existing_nodes = self._existing_nodes(state_nodes, topology)
+        with obs.span("provision.topology"):
+            topology = Topology(cluster=view, domains=domains, pods=pods)
+        with obs.span("provision.existing"):
+            if enodes_base is not None:
+                # disruption fast path (helpers.simulate_scheduling): the
+                # round's snapshot bundle supplies generation-current
+                # ExistingNode prototypes; forking re-binds them to THIS
+                # solve's topology and fresh mutable state, skipping the
+                # O(E) constructor sweep per confirming simulation
+                existing_nodes = [en.fork(topology) for en in enodes_base]
+            else:
+                existing_nodes = self._existing_nodes(state_nodes, topology)
         # live batches with admission markers (pod priorities, gang
         # annotations, a tiering default class) route through the
         # admission plane — the tiered cascade, gang atomicity, and the
@@ -338,17 +351,18 @@ class Provisioner:
         # counterfactuals and marker-free batches keep the single solve.
         plane = self.admission_plane() if live_batch else None
         if plane is not None and plane.engages(pods):
-            results = plane.solve_round(
-                self.solver,
-                pods,
-                templates,
-                its_by_pool,
-                topology=topology,
-                existing_nodes=existing_nodes,
-                daemon_overhead=overhead,
-                limits=limits or None,
-                volume_topology=vt,
-            )
+            with obs.span("provision.admission", pods=len(pods)):
+                results = plane.solve_round(
+                    self.solver,
+                    pods,
+                    templates,
+                    its_by_pool,
+                    topology=topology,
+                    existing_nodes=existing_nodes,
+                    daemon_overhead=overhead,
+                    limits=limits or None,
+                    volume_topology=vt,
+                )
         else:
             results = self.solver.solve(
                 pods,
@@ -385,6 +399,22 @@ class Provisioner:
                 for reason, count in routed.items():
                     if count:
                         ctr.inc(count, reason=reason)
+                # anomaly trigger: a live batch leaving the device path is
+                # the grid-regression signature. The calibrated crossovers
+                # are exempt: routing a tiny batch to the host/C++ engine
+                # (small-batch) or having no ready nodepool (no-templates)
+                # is by design
+                refused = {
+                    r: n for r, n in routed.items()
+                    if r not in ("small-batch", "no-templates")
+                }
+                total_refused = sum(refused.values())
+                if total_refused:
+                    obs.anomaly(
+                        "host-routed", registry=self.registry,
+                        pods=total_refused,
+                        reasons=",".join(sorted(refused)),
+                    )
         results.truncate_instance_types()
         return results
 

@@ -8,8 +8,7 @@ compatible nodes — preferring the node they were nominated onto — and pods
 the binder cannot place get the Unschedulable condition the provisioner
 watches for.
 
-The port's copy of ``karpenter_tpu/kube/binder.py`` (imports changed),
-without the flight-recorder spans (ROADMAP.md Queue 1 item 1).
+The port's copy of ``karpenter_tpu/kube/binder.py`` (imports changed).
 """
 
 from __future__ import annotations
@@ -113,7 +112,14 @@ class Binder:
         if not pending:
             return 0  # idle tick: no trace, no work
         t0 = time.perf_counter()
-        progressed = self._bind(pending)
+        # a binding pass is the root of its own reconcile round (obs
+        # flight recorder) — the scheduler stand-in's analog of the
+        # provisioner's solve round
+        from karpenter_tpu_torch import obs
+
+        with obs.round_trace("bind", registry=self.registry,
+                             pending=len(pending)):
+            progressed = self._bind(pending)
         STATS["rebind_ms"] += (time.perf_counter() - t0) * 1000.0
         STATS["passes"] += 1
         STATS["bound"] += progressed
@@ -150,17 +156,20 @@ class Binder:
     def _bind(self, pending: list) -> int:
         progressed = 0
         node_view: dict = {}  # node name -> (Taints, label Requirements)
-        nodes = {n.name: n for n in self.store.list("nodes")}
-        # availability computed once per pass, decremented as pods bind
-        used: dict = {name: {} for name in nodes}
-        for p in self.store.list("pods"):
-            if p.node_name in used and p.metadata.deletion_timestamp is None:
-                used[p.node_name] = resutil.merge(
-                    used[p.node_name], p.effective_requests())
-        available = {
-            name: resutil.subtract(nodes[name].allocatable, used[name])
-            for name in nodes
-        }
+        from karpenter_tpu_torch import obs
+
+        with obs.span("bind.availability"):
+            nodes = {n.name: n for n in self.store.list("nodes")}
+            # availability computed once per pass, decremented as pods bind
+            used: dict = {name: {} for name in nodes}
+            for p in self.store.list("pods"):
+                if p.node_name in used and p.metadata.deletion_timestamp is None:
+                    used[p.node_name] = resutil.merge(
+                        used[p.node_name], p.effective_requests())
+            available = {
+                name: resutil.subtract(nodes[name].allocatable, used[name])
+                for name in nodes
+            }
 
         # nominated pods get first crack at their reserved capacity
         pending.sort(key=lambda p: not p.nominated_node_name)

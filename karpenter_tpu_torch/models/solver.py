@@ -38,12 +38,25 @@ the device. ``KARPENTER_NATIVE_CUTOFF=0`` turns all routing off,
 ``KARPENTER_HOST_CUTOFF`` and ``KARPENTER_DEVICE_MIN_WORK`` move the other
 two gates, and ``KARPENTER_ASSUME_ACCELERATOR`` overrides the device test.
 ``last_device_stats`` records the ``engine`` that ran (``"host"``,
-``"native"`` or the device type) and the ``route`` (rung, reason) — the
-stand-in for the JAX package's decision ledger. ``NativeSolver`` always
-runs the native engine; ``make_solver`` picks the default solver.
+``"native"`` or the device type); each solve records ONE ``solver.route``
+decision, its (rung, reason) also kept on ``_route`` as the JAX package
+keeps it. ``NativeSolver`` always runs the native engine; ``make_solver``
+picks the default solver.
+
+Observability, at the JAX package's sites and with its names: the
+``solve.host`` span around the FFD loop; per dispatch ``solve.kernel``
+(``device``) holding ``solve.native`` or ``solve.dispatch`` (the eager
+launch of the pack loop) and ``solve.block`` (the one readback, where
+the host waits for the card), then ``solve.decode``; the compile ledger's
+``solve.kernel`` family under the JAX package's key (padded shapes and
+static parameters), the ``solve.bins`` padding site, the bin-growth
+counter, the solve-quality account and the ``decode.recheck`` decision.
+``last_device_stats`` carries the solve's ``cold_compiles`` and
+``pad_waste_ratio`` deltas.
 
 Not in this slice (see ROADMAP.md): the mesh, the speculative doubled
-dispatch (``_invoke_spec``), replay capsules and the decision ledger.
+dispatch (``_invoke_spec``, and so its ``solve.dispatch_spec`` span) and
+replay capsules.
 """
 
 from __future__ import annotations
@@ -54,9 +67,10 @@ import time
 import numpy as np
 import torch
 
-from karpenter_tpu_torch import native
+from karpenter_tpu_torch import native, obs
 from karpenter_tpu_torch.api import labels as wk
 from karpenter_tpu_torch.models.inflight import InFlightNodeClaim
+from karpenter_tpu_torch.obs import decisions, devplane
 from karpenter_tpu_torch.models.scheduler import (
     NullTopology,
     Scheduler,
@@ -131,13 +145,19 @@ class HostSolver(Solver):
             volume_topology=volume_topology,
         )
         sched.new_claims = list(initial_claims)
-        return sched.solve(pods)
+        # the host FFD loop is one opaque leaf in the round's span tree
+        with obs.span("solve.host", pods=len(pods)):
+            return sched.solve(pods)
 
 
 def _host_stats(pods, host_routed, reason, **stages) -> dict:
+    """``last_device_stats`` of a host-routed solve, whose one
+    ``solver.route`` verdict is recorded here."""
+    decisions.record_decision("solver.route", "host", reason)
     return dict(groups=0, types=0, device_pods=0, retry_pods=0,
                 host_pods=len(pods), existing_pods=0, engine="host",
-                route=("host", reason), host_routed=host_routed, **stages)
+                host_routed=host_routed, cold_compiles=0,
+                pad_waste_ratio=0.0, **stages)
 
 
 class TorchSolver(Solver):
@@ -152,6 +172,9 @@ class TorchSolver(Solver):
         self.device = torch.device("cuda" if device is None else device)
         self.host = HostSolver()
         self.last_device_stats: dict = {}
+        # (rung, reason) of the most recent dispatch, recorded as the
+        # solve's ONE "solver.route" verdict (obs/decisions.py)
+        self._route = None
 
     def solve(self, pods, templates, instance_types, topology=None,
               existing_nodes=(), daemon_overhead=None, limits=None,
@@ -174,6 +197,11 @@ class TorchSolver(Solver):
         existing_nodes = list(existing_nodes)
         stages: dict = {}
         rows0 = (_TZ_STATS["group_row_hits"], _TZ_STATS["group_row_misses"])
+        # device-plane deltas for THIS solve: first-sight dispatches and
+        # pow-2 padding waste across its dispatches
+        dp0 = (devplane.STATS["cold_compiles"],
+               devplane.STATS["pad_cells_actual"],
+               devplane.STATS["pad_cells_padded"])
         # weight order decides which template a new bin opens from
         # (scheduler.go:267 tries templates in weight order)
         templates = sorted(templates, key=lambda t: (-t.weight, t.nodepool_name))
@@ -248,9 +276,20 @@ class TorchSolver(Solver):
             if esnap is None:
                 esnap = tensorize_existing(snap, existing_nodes, device_plan)
             stages["tensorize_ms"] += (time.perf_counter() - t0) * 1000.0
+        self._route = None
         claims, retry, ecommits = self._run_and_decode(
             snap, esnap, max_bins, stages)
+        if self._route is not None:
+            # the solve's ONE solver.route verdict: the engine the last
+            # dispatch ran on (a doubled re-run overwrites)
+            decisions.record_decision("solver.route", *self._route)
+        pad_padded = devplane.STATS["pad_cells_padded"] - dp0[2]
+        pad_actual = devplane.STATS["pad_cells_actual"] - dp0[1]
         self.last_device_stats = dict(
+            cold_compiles=devplane.STATS["cold_compiles"] - dp0[0],
+            pad_waste_ratio=(
+                round(1.0 - pad_actual / pad_padded, 4)
+                if pad_padded > 0 else 0.0),
             groups=snap.G,
             types=snap.T,
             existing=esnap.E if esnap is not None else 0,
@@ -259,7 +298,6 @@ class TorchSolver(Solver):
             host_pods=len(rest),
             existing_pods=sum(len(e[1]) for e in ecommits),
             engine=self._engine,
-            route=self._route,
             host_routed=host_routed,
             group_row_cache_hits=_TZ_STATS["group_row_hits"] - rows0[0],
             group_row_cache_misses=_TZ_STATS["group_row_misses"] - rows0[1],
@@ -402,35 +440,60 @@ class TorchSolver(Solver):
         args = None
         compat_cache: dict = {}
         bin_cap = min(p["total_pods"], 4096)
+        # the compile ledger's key, as the JAX package builds it: the
+        # padded shapes and the static parameters (the tier count rides
+        # as a pseudo-static dim)
+        base_key = (p["Gp"], p["Tp"], snap.g_mask.shape[1], snap.W,
+                    len(snap.resources), len(snap.templates),
+                    snap.off_zone.shape[1], snap.g_decl.shape[1],
+                    snap.g_sown.shape[1], snap.g_aneed.shape[1],
+                    p["Ep"] if esnap is not None else 0, snap.n_tiers)
         while True:
             t0 = time.perf_counter()
-            host = None
-            reason = self._native_reason(args_np)
-            if reason is not None:
-                host = self._invoke_native(args_np, Bp, reason)
-            if host is None:
-                if args is None:
-                    args = kernels.from_kernel_args(args_np, self.device)
-                # engine and (rung, reason) of this dispatch, for the stats
-                self._engine = self.device.type
-                self._route = ("device", "ok")
-                host = self._invoke(args, Bp, p["level_bits"], p["max_minv"])
+            # pow-2 ladder waste of THIS dispatch (real G×T×B cells vs the
+            # padded volume the pack loop walks)
+            devplane.record_padding("solve.bins", G * T * B,
+                                    p["Gp"] * p["Tp"] * Bp)
+            with obs.span("solve.kernel", kind="device", bins=Bp):
+                host = None
+                reason = self._native_reason(args_np)
+                if reason is not None:
+                    host = self._invoke_native(args_np, Bp, reason)
+                if host is None:
+                    if args is None:
+                        args = kernels.from_kernel_args(args_np, self.device)
+                    # engine and (rung, reason) of this dispatch
+                    self._engine = self.device.type
+                    self._route = ("device", "ok")
+                    host = self._invoke(
+                        args, Bp, p["level_bits"], p["max_minv"],
+                        key=base_key + (Bp, p["level_bits"], p["max_minv"]))
             stages["solve_ms"] = stages.get("solve_ms", 0.0) + (
                 time.perf_counter() - t0) * 1000.0
             used = host["used"]
             grow = max_bins is None and bool(used[:B].all()) and B < bin_cap
             assign_e = host["assign_e"][:G, :E] if esnap is not None else None
             t0 = time.perf_counter()
-            claims, retry, ecommits = self._decode(
-                snap, esnap, host["assign"][:G], assign_e, used,
-                host["F"][:G, :T], host["tmpl"], compat_cache)
+            with obs.span("solve.decode"):
+                claims, retry, ecommits = self._decode(
+                    snap, esnap, host["assign"][:G], assign_e, used,
+                    host["F"][:G, :T], host["tmpl"], compat_cache)
             stages["decode_ms"] = stages.get("decode_ms", 0.0) + (
                 time.perf_counter() - t0) * 1000.0
             if retry and grow:
+                # the doubled re-run keeps axis exhaustion on the device
+                devplane.record_bin_growth()
                 stages["bin_growths"] = stages.get("bin_growths", 0) + 1
                 B = min(2 * B, 4096)
                 Bp = _bucket(B)
                 continue
+            floor = p["floor"]
+            if floor is not None and floor > 0 and claims and not retry:
+                # solve-quality account: bins opened vs the demand lower
+                # bound; a steady-state drift fires solve-overhead-drift
+                # (obs/decisions.py; family = the compiled shape bucket)
+                decisions.record_quality(len(claims), floor,
+                                         family=f"{p['Gp']}x{p['Tp']}")
             if p["lp_led"] and claims and not retry:
                 # the LP floor sized a solve that completed whole: the
                 # relax rung, as the JAX package's route records it
@@ -467,7 +530,8 @@ class TorchSolver(Solver):
         """One dispatch on the native engine; None when the engine fails,
         which is logged, and the dispatch then takes the device."""
         try:
-            out = native.solve_step(args_np, max_bins)
+            with obs.span("solve.native", kind="device"):
+                out = native.solve_step(args_np, max_bins)
         except (RuntimeError, ValueError):
             logging.getLogger(__name__).warning(
                 "native engine failed on a routed batch; falling back to "
@@ -477,19 +541,31 @@ class TorchSolver(Solver):
         self._route = ("native", reason)
         return out
 
-    def _invoke(self, args, max_bins, level_bits, max_minv):
+    def _invoke(self, args, max_bins, level_bits, max_minv, key):
         """One device dispatch: solve_step with every output flattened into
-        ONE int32 buffer, read back to the host once."""
-        out = kernels.solve_step(args, max_bins=max_bins,
-                                 level_bits=level_bits, max_minv=max_minv)
-        flat = torch.cat([
-            out["assign"].ravel(),
-            out["assign_e"].ravel(),
-            out["used"].to(torch.int32),
-            out["tmpl"],
-            out["F"].to(torch.int32).ravel(),
-        ])
-        return self._unpack(flat.cpu().numpy(), args, max_bins)
+        ONE int32 buffer, read back to the host once. ``solve.dispatch``
+        holds the eager launch of the pack loop (PyTorch queues the
+        kernels and returns), ``solve.block`` the readback, where the
+        host waits for the card; ``key`` is the compile ledger's."""
+        t0 = time.perf_counter()
+        with obs.span("solve.dispatch", kind="device"):
+            out = kernels.solve_step(args, max_bins=max_bins,
+                                     level_bits=level_bits,
+                                     max_minv=max_minv)
+            flat = torch.cat([
+                out["assign"].ravel(),
+                out["assign_e"].ravel(),
+                out["used"].to(torch.int32),
+                out["tmpl"],
+                out["F"].to(torch.int32).ravel(),
+            ])
+        # a first-sight key's seconds are its launch: CUDA's first use and
+        # the compat build, where the JAX package pays its XLA compile
+        devplane.record_dispatch("solve.kernel", key,
+                                 time.perf_counter() - t0)
+        with obs.span("solve.block", kind="device"):
+            host = flat.cpu().numpy()  # one device->host read
+        return self._unpack(host, args, max_bins)
 
     @staticmethod
     def _unpack(flat, args, max_bins):
@@ -548,11 +624,20 @@ class TorchSolver(Solver):
             ]
             snap._tmpl_keymeta = tmeta
         tkeys, off_free = tmeta[m]
-        exact = (
-            off_free
-            and all(tkeys.isdisjoint(snap.group_reqs[g].keys()) for g in gset)
-            and (len(gset) == 1 or self._decomposable(snap, gset))
-        )
+        # the decision tree splits so the decode.recheck verdict can carry
+        # WHY the exactness argument did not apply (obs/decisions.py)
+        if not off_free:
+            exact, why = False, "offering-keys"
+        elif not all(tkeys.isdisjoint(snap.group_reqs[g].keys())
+                     for g in gset):
+            exact, why = False, "group-key-overlap"
+        elif len(gset) == 1 or self._decomposable(snap, gset):
+            exact, why = True, "ok"
+        else:
+            exact, why = False, "non-decomposable"
+        decisions.record_decision(
+            "decode.recheck", "skip" if exact else "full",
+            "no-candidates" if exact and not tsel.size else why)
         if exact and tsel.size:
             _TZ_STATS["decode_exact_skips"] += 1
         if tsel.size and not exact:

@@ -294,7 +294,7 @@ NODE_TERMINATION_DURATION = f"{NAMESPACE}_nodes_termination_duration_seconds"
 NODECLAIM_TERMINATION_DURATION = (
     f"{NAMESPACE}_nodeclaims_termination_duration_seconds"
 )
-# device-plane telemetry (the JAX package's karpenter_tpu/obs/devplane.py): the compile
+# device-plane telemetry (obs/devplane.py): the compile
 # ledger (cold-compile events/wall time + resident executable families),
 # pow-2 padding-waste fractions per dispatch site, and the solver-service
 # SLO surfaces (request histogram, rolling quantile gauges, error-budget
@@ -315,7 +315,9 @@ SHARD_FALLBACKS = f"{NAMESPACE}_shard_fallbacks_total"
 SOLVER_REQUEST_SECONDS = f"{NAMESPACE}_solver_request_seconds"
 SOLVER_REQUEST_QUANTILE = f"{NAMESPACE}_solver_request_quantile_seconds"
 SLO_BUDGET_BURN = f"{NAMESPACE}_slo_error_budget_burn_total"
-# decision plane (the JAX package's karpenter_tpu/obs/decisions.py): one ladder verdict per
+# per-tenant request counters on the SLO plane (SloTracker(tenant=))
+SOLVER_TENANT_REQUESTS = f"{NAMESPACE}_solver_tenant_requests_total"
+# decision plane (obs/decisions.py): one ladder verdict per
 # site invocation (labels site/rung/reason, reasons drawn from the closed
 # per-site enums so cardinality is bounded), the per-solve node-count
 # overhead over the solver's pods-cap floor, and per-multichip-solve shard
@@ -325,7 +327,7 @@ DECISION_TOTAL = f"{NAMESPACE}_decision_total"
 SOLVE_OVERHEAD_RATIO = f"{NAMESPACE}_solve_overhead_ratio"
 SHARD_BALANCE_RATIO = f"{NAMESPACE}_shard_balance_ratio"
 # span-derived families fed by the reconcile flight recorder
-# (the JAX package's karpenter_tpu/obs): per-span self time, round durations, anomaly
+# (obs/): per-span self time, round durations, anomaly
 # trigger counts, and trace files written
 TRACE_SPAN_SECONDS = f"{NAMESPACE}_trace_span_self_seconds"
 TRACE_ROUND_SECONDS = f"{NAMESPACE}_trace_round_duration_seconds"
@@ -336,7 +338,7 @@ TRACE_DUMPS = f"{NAMESPACE}_trace_dumps_total"
 # captures skipped by the KARPENTER_CAPSULE_BYTES size budget
 CAPSULE_WRITES = f"{NAMESPACE}_capsule_writes_total"
 CAPSULE_SKIPPED = f"{NAMESPACE}_capsule_skipped_total"
-# fleet ledger (the JAX package's karpenter_tpu/obs/timeline.py): effective-price dollars
+# fleet ledger (obs/timeline.py): effective-price dollars
 # integrated over node lifetimes, predicted vs realized savings rates of
 # reconciled disruption commands, per-tenant device-time billing (the
 # histogram's tenant series retire via Histogram.remove when the tenant's

@@ -55,7 +55,16 @@ probe entry (``native.solve_probe_batch``) in chunks of
 ``NATIVE_PROBE_CHUNK_ROWS``, on the numpy snapshot, as in the JAX
 package; a native failure is logged and the rows take the device.
 
-Left out (a later slice, ROADMAP.md Queue 1): replay capture.
+Observability, at the JAX package's sites: ``snapshot.build`` and
+``snapshot.advance`` spans (``cache``), ``probe.dispatch`` per dispatch,
+``probe.kernel`` per chunk (``device``: the launch and the chunk's one
+readback, so the span holds its device work) with the compile ledger's
+``probe.kernel`` key and the ``probe.rows`` padding site,
+``probe.native`` per native chunk, ``global.relax``/``global.dispatch``
+in the joint plan, and ``SnapshotCache``'s ``snapshot.advance``
+decisions with the ``snapshot-rebuild`` anomaly.
+
+Left out (a later slice, ROADMAP.md Queue 1 item 1): replay capture.
 """
 
 from __future__ import annotations
@@ -68,7 +77,8 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-from karpenter_tpu_torch import native
+from karpenter_tpu_torch import native, obs
+from karpenter_tpu_torch.obs import devplane
 from karpenter_tpu_torch.ops import kernels
 from karpenter_tpu_torch.ops.tensorize import (
     ExistingSnapshot,
@@ -337,7 +347,8 @@ class DisruptionSnapshot:
                     daemon_resources, p.effective_requests())
         return ExistingNode(sn, self.topology, daemon_resources, kube=store)
 
-    def advance(self, cluster, store, deltas, generation) -> bool:
+    def advance(self, cluster, store, deltas, generation,
+                registry=None) -> bool:
         """Patch this bundle to ``generation`` from the cluster's structured
         delta journal instead of rebuilding. Returns False when any delta
         is inexpressible — opaque entries, a pod whose signature matches no
@@ -345,6 +356,14 @@ class DisruptionSnapshot:
         drifts with node churn), or a churn so large a rebuild is cheaper
         — and the caller re-tensorizes from scratch; ``advance_refusal``
         names the cause."""
+        with obs.span("snapshot.advance", kind="cache",
+                      deltas=len(deltas)) as sp:
+            ok = self._advance(cluster, store, deltas, generation, registry)
+            if sp is not None:
+                sp.attrs["applied"] = ok
+            return ok
+
+    def _advance(self, cluster, store, deltas, generation, registry) -> bool:
         from karpenter_tpu_torch.utils import pod as pod_util
 
         self.advance_refusal = None
@@ -424,7 +443,9 @@ class DisruptionSnapshot:
             return False  # a wave: rebuilding also re-compacts the E axis
         t_delta = time.perf_counter()
         esnap.apply_delta(
-            self.snap, dirty=dirty_nodes, removed=removed, added=added_nodes)
+            self.snap, dirty=dirty_nodes, removed=removed, added=added_nodes,
+            registry=registry,
+        )
         GLOBAL_STATS["tensorize_delta_ms"] += (
             time.perf_counter() - t_delta) * 1000.0
         # formulation rows ride the delta too: exactly the touched rows
@@ -554,20 +575,23 @@ class DisruptionSnapshot:
         # per-generation invocation accounting: the short-circuit contract
         # (one probe dispatch per generation) is read off this log
         note_probe_dispatch(self.generation)
+        rows = g_count_k.shape[0]
         if self._native_routable():
             shared, (Gp, Ep) = self._shared_host()
             try:
-                return dispatch_counterfactual_rows_native(
-                    shared, Gp, Ep, self.esnap.e_avail, self.max_minv,
-                    g_count_k, e_zero_cols, max_bins=max_bins)
+                with obs.span("probe.dispatch", rows=rows, engine="native"):
+                    return dispatch_counterfactual_rows_native(
+                        shared, Gp, Ep, self.esnap.e_avail, self.max_minv,
+                        g_count_k, e_zero_cols, max_bins=max_bins)
             except (RuntimeError, ValueError):
                 logging.getLogger(__name__).warning(
                     "native probe dispatch failed; using the device kernel",
                     exc_info=True)
         shared, (Gp, Ep) = self._shared_args()
-        return dispatch_counterfactual_rows(
-            shared, Gp, Ep, self.esnap.e_avail, self.max_minv,
-            g_count_k, e_zero_cols, max_bins=max_bins)
+        with obs.span("probe.dispatch", rows=rows, engine="device"):
+            return dispatch_counterfactual_rows(
+                shared, Gp, Ep, self.esnap.e_avail, self.max_minv,
+                g_count_k, e_zero_cols, max_bins=max_bins)
 
     def _native_routable(self) -> bool:
         """The solver's engine gates applied to the probe: the same
@@ -654,9 +678,28 @@ def dispatch_counterfactual_rows(shared, Gp, Ep, e_avail, max_minv,
         n = hi - lo
         varying = chunk_rows(e_master, g_count_k, e_zero_cols, e_free,
                              lo, hi, Gp)
-        out_placed, out_used = kernels.probe_step(
-            varying, shared, max_bins=max_bins, max_minv=max_minv)
-        host = torch.cat([out_placed[:n].ravel(), out_used[:n]]).cpu().numpy()
+        Np = varying["g_count"].shape[0]
+        # pow-2 row-ladder waste of this chunk (real counterfactual rows
+        # vs the padded row axis the pack loop carries)
+        devplane.record_padding("probe.rows", n, Np)
+        # launch + host read in one device-kind leaf: the readback is
+        # the chunk's one synchronisation, so the span holds its device
+        # work
+        with obs.span("probe.kernel", kind="device", rows=n):
+            t0 = time.perf_counter()
+            out_placed, out_used = kernels.probe_step(
+                varying, shared, max_bins=max_bins, max_minv=max_minv)
+            # the JAX package's key: the row axis, the snapshot shapes,
+            # R and the static parameters; a first sight's seconds are
+            # the launch (CUDA's first use, the compat build)
+            devplane.record_dispatch(
+                "probe.kernel",
+                (Np, tuple(shared["g_mask"].shape),
+                 tuple(shared["t_mask"].shape), Ep, e_avail.shape[1],
+                 max_minv, max_bins),
+                time.perf_counter() - t0)
+            host = torch.cat(
+                [out_placed[:n].ravel(), out_used[:n]]).cpu().numpy()
         placed_g[lo:hi] = host[:n * Gp].reshape(n, Gp)
         used[lo:hi] = host[n * Gp:]
     return placed_g, used
@@ -688,12 +731,13 @@ def dispatch_counterfactual_rows_native(shared, Gp, Ep, e_avail, max_minv,
             if fr is not None:
                 e_chunk[i, int(fr[0]), :] += np.asarray(
                     fr[1], dtype=e_chunk.dtype)
-        pg, u = native.solve_probe_batch(
-            shared,
-            pad(np.asarray(g_count_k[lo:hi], dtype=np.int32), (n, Gp)),
-            pad(e_chunk.astype(np.float32, copy=False), (n, Ep, R)),
-            max_bins,
-        )
+        with obs.span("probe.native", kind="device", rows=n):
+            pg, u = native.solve_probe_batch(
+                shared,
+                pad(np.asarray(g_count_k[lo:hi], dtype=np.int32), (n, Gp)),
+                pad(e_chunk.astype(np.float32, copy=False), (n, Ep, R)),
+                max_bins,
+            )
         placed_g[lo:hi] = pg
         used[lo:hi] = u
     return placed_g, used
@@ -704,6 +748,13 @@ def build_disruption_snapshot(provisioner, cluster, store, candidates):
     provisioner's solver's device. Returns None when the device path
     cannot express the scenario at all (the probes then fall back to the
     sequential search)."""
+    with obs.span("snapshot.build", kind="cache",
+                  candidates=len(candidates)):
+        return _build_disruption_snapshot(
+            provisioner, cluster, store, candidates)
+
+
+def _build_disruption_snapshot(provisioner, cluster, store, candidates):
     from karpenter_tpu_torch.utils import pod as pod_util
 
     generation = cluster.consolidation_state()
@@ -764,7 +815,8 @@ def build_disruption_snapshot(provisioner, cluster, store, candidates):
     )
     if snap.G == 0:
         return None
-    esnap = tensorize_existing(snap, enodes, plan)
+    esnap = tensorize_existing(
+        snap, enodes, plan, registry=getattr(provisioner, "registry", None))
 
     gidx_of = {}
     for g, pods_g in enumerate(snap.groups):
@@ -811,14 +863,15 @@ class SnapshotCache:
     controller's context so Emptiness → Global → MultiNode → SingleNode →
     validation share one tensorization per generation, and a later
     generation is reached by a delta advance where the journal allows.
-    ``STATS`` counts builds, advances, hits and refusals by cause."""
+    Every stale-bundle resolution records one ``snapshot.advance``
+    decision (``delta``, or ``rebuild`` with the refusal's cause), and a
+    held bundle displaced by a full rebuild marks the round with the
+    ``snapshot-rebuild`` anomaly, as in the JAX package."""
 
     def __init__(self):
         self._bundle = None
         self._neg = None  # (generation, build_key) of a failed build
         self._last_refusal = None  # why the last delta-advance declined
-        self.stats = {"builds": 0, "advances": 0, "hits": 0,
-                      "negative_hits": 0, "refusals": {}}
 
     def get(self, provisioner, cluster, store, candidates, registry=None):
         from karpenter_tpu_torch.operator import metrics as m
@@ -826,8 +879,8 @@ class SnapshotCache:
         generation = cluster.consolidation_state()
         key = frozenset(c.provider_id for c in candidates)
         b = self._bundle
+        advanced = None
         if b is not None and b.generation == generation and key <= b.build_key:
-            self.stats["hits"] += 1
             if registry is not None:
                 registry.counter(
                     m.DISRUPTION_SNAPSHOT_CACHE_HITS,
@@ -839,13 +892,17 @@ class SnapshotCache:
             # structured delta journal instead of re-tensorizing the fleet;
             # anything the journal can't express falls through to the
             # full rebuild below
-            b2 = self._try_advance(cluster, store, generation, registry)
+            b2 = advanced = self._try_advance(cluster, store, generation,
+                                             registry)
             if b2 is not None and key <= b2.build_key:
+                from karpenter_tpu_torch.obs import decisions
+
+                decisions.record_decision("snapshot.advance", "delta",
+                                          registry=registry)
                 return b2
         if self._neg == (generation, key):
             # an inexpressible build is generation-stable: don't re-pay the
             # assembly for every method in the round
-            self.stats["negative_hits"] += 1
             if registry is not None:
                 registry.counter(
                     m.DISRUPTION_SNAPSHOT_CACHE_HITS,
@@ -858,8 +915,26 @@ class SnapshotCache:
                 "disruption snapshot rebuilds (generation bump or wider "
                 "candidate set)",
             ).inc()
+        if self._bundle is not None:
+            # anomaly trigger: a held bundle is being displaced by a full
+            # tensorization — the delta layer declined or the candidate key
+            # widened; the first-ever build of a process is NOT an anomaly
+            # (there was nothing to advance). The decision ledger records
+            # the transition with the inexpressible-delta cause.
+            from karpenter_tpu_torch.obs import decisions
+
+            b_old = self._bundle
+            if b_old.generation >= generation or advanced is not None:
+                # same-generation (or already-advanced) displacement: only
+                # a wider candidate key forces the rebuild
+                reason = "candidate-widened"
+            else:
+                reason = self._last_refusal or "journal-gap"
+            decisions.record_decision("snapshot.advance", "rebuild", reason,
+                                      registry=registry)
+            obs.anomaly("snapshot-rebuild", registry=registry,
+                        generation=generation)
         b = build_disruption_snapshot(provisioner, cluster, store, candidates)
-        self.stats["builds"] += 1
         if b is not None:
             self._bundle = b
             self._neg = None
@@ -895,7 +970,13 @@ class SnapshotCache:
         if b.generation == generation:
             return b
         if b.generation < generation:
-            return self._try_advance(cluster, store, generation, registry)
+            b2 = self._try_advance(cluster, store, generation, registry)
+            if b2 is not None:
+                from karpenter_tpu_torch.obs import decisions
+
+                decisions.record_decision("snapshot.advance", "delta",
+                                          registry=registry)
+            return b2
         return None
 
     def _try_advance(self, cluster, store, generation, registry):
@@ -905,13 +986,13 @@ class SnapshotCache:
         b = self._bundle
         deltas = getattr(cluster, "deltas_since", lambda g: None)(b.generation)
         if deltas is None:
-            self._refused("journal-gap")
+            self._last_refusal = "journal-gap"
             return None
-        if not b.advance(cluster, store, deltas, generation):
-            self._refused(b.advance_refusal or "opaque-entry")
+        if not b.advance(cluster, store, deltas, generation,
+                         registry=registry):
+            self._last_refusal = b.advance_refusal or "opaque-entry"
             return None
         self._last_refusal = None
-        self.stats["advances"] += 1
         if registry is not None:
             from karpenter_tpu_torch.operator import metrics as m
 
@@ -920,11 +1001,6 @@ class SnapshotCache:
                 "disruption probes served from the snapshot cache",
             ).inc(kind="delta")
         return b
-
-    def _refused(self, reason):
-        self._last_refusal = reason
-        refusals = self.stats["refusals"]
-        refusals[reason] = refusals.get(reason, 0) + 1
 
     def inputs_for(self, cluster):
         """The cached solver inputs when still generation-current, else
@@ -1362,9 +1438,10 @@ def joint_retirement_plan(provisioner, cluster, store, candidates,
 
         if _relax.relax_enabled(bundle.device):
             rt = {"formulate_ms": (time.perf_counter() - t0) * 1000.0}
-            rplan, _cause = _relax.joint_relax_plan(
-                bundle, candidates, col_arr, contrib, cum, rt,
-                device=bundle.device)
+            with obs.span("global.relax", candidates=N):
+                rplan, _cause = _relax.joint_relax_plan(
+                    bundle, candidates, col_arr, contrib, cum, rt,
+                    device=bundle.device)
             if rplan is not None:
                 _account(rt, 0, 0)
                 return rplan
@@ -1380,8 +1457,9 @@ def joint_retirement_plan(provisioner, cluster, store, candidates,
             col_arr[c: c + 1] for c in range(1, N)]
     rows_total = g_count_k.shape[0]
     t1 = time.perf_counter()
-    placed_g, used = bundle.dispatch(g_count_k, e_zero_cols,
-                                     max_bins=_replace_max_claims())
+    with obs.span("global.dispatch", rows=rows_total, singles=singles):
+        placed_g, used = bundle.dispatch(g_count_k, e_zero_cols,
+                                         max_bins=_replace_max_claims())
     t2 = time.perf_counter()
 
     single_mask = None

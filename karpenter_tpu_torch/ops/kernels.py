@@ -38,7 +38,28 @@ Where the two frameworks differ and this module compensates:
   patterns (``from_kernel_args``), and only ``&``, ``|`` and ``!= 0`` are
   applied to them;
 - a 0-d tensor used as an index may be read back to the host: rows picked
-  by a device-side argmax go through ``index_select``/``gather``.
+  by a device-side argmax go through ``index_select``/``gather``;
+- XLA on the CPU contracts a multiply feeding an add in one fused loop into
+  a fused multiply-add (one rounding of ``a·b + c``); torch rounds the
+  product and the sum apart. The sites, read from the object code of the
+  JAX package's compiled solve and probe (``XLA_FLAGS=--xla_dump_to``,
+  jax 0.9.0 on x86-64): ``load2`` (``load + take·d``), ``new_load``
+  (``overhead + pods_new·d``) and ``eload2`` in every program; the
+  nodepool-limit debit ``rem[m*] + (−worst)·n_opened`` in the solve (a
+  dynamic-update-slice fusion) but not in the probe (a scatter-add of the
+  product); the capacity formula ``ad − load·inv_d`` in the solve when the
+  bin and type axes have the same length (otherwise LLVM hoists the
+  product out of the vectorised type loop) and never in the probe.
+  ``pack`` computes those sites with ``fma32``, the rest op by op, so a
+  capacity at a float tie floors as the reference's does. ``fma32`` forms
+  the product exactly in float64 (two 24-bit significands fit in 53
+  bits), adds in float64 with round-to-odd (the exact residual from
+  TwoSum; an inexact even sum steps one ulp toward it), and rounds to
+  float32 once: round-to-odd at 53 bits followed by round-to-nearest at
+  24 is the correctly rounded result, so no double rounding. These are
+  plain float64 torch ops, IEEE on the CPU and on the card alike, so the
+  two stay bit-equal; ``torch.addcmul`` was not used because whether it
+  rounds once depends on how each build's kernel was compiled.
 """
 
 from __future__ import annotations
@@ -70,6 +91,24 @@ def resolve_device(device, what: str) -> torch.device:
                 "device='cpu' to run the plain PyTorch path")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a·b + c`` for float32 tensors (broadcasting), rounded once to
+    float32 — XLA's contracted multiply-add. The product is exact in
+    float64; the float64 sum is made round-to-odd from its TwoSum residual
+    before the one rounding to float32. Infinite sums pass through."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bb = s - c
+    err = (c - (s - bb)) + (p - bb)  # p + c == s + err exactly
+    bits = s.view(torch.int64)
+    even_inexact = (err != 0) & ((bits & 1) == 0) & torch.isfinite(s)
+    # one ulp toward the exact sum: up in magnitude iff err has s's sign
+    step = torch.where((err > 0) == (s > 0), 1, -1)
+    bits = torch.where(even_inexact, bits + step, bits)
+    return bits.view(torch.float64).to(_F32)
 
 
 def sat_int32(x: torch.Tensor) -> torch.Tensor:
@@ -248,11 +287,16 @@ def pack(
     with_existing: bool = True,
     level_bits: int = _LEVEL_SEARCH_ITERS,
     max_minv: int = 0,
+    fma_cap: bool = False,
+    fma_rem: bool = True,
 ):
     """Grouped greedy pack — the JAX ``pack`` step for step (see its
     docstring for the semantics of every class and gate), for N rows at
     once: row i packs ``g_count[i]`` onto ``e_avail[i]`` and bins of its
-    own, and no row reads another's state. Returns dict with assign
+    own, and no row reads another's state. ``fma_cap``/``fma_rem`` say
+    whether the capacity formula and the nodepool-limit debit round once
+    (``fma32``), as the reference's compiled program does at this shape
+    (module docstring). Returns dict with assign
     [N,G,B] i32, assign_e [N,G,E] i32, used [N,B] bool, npods [N,B] i32,
     types [N,B,T] bool, tmpl [N,B] i32, tier [N,B] i32."""
     dev = g_demand.device
@@ -342,7 +386,7 @@ def pack(
             take_e = _level_fill(q_e, enpods, n, level_bits)  # [N,E]
             n = n - take_e.sum(-1, dtype=_I32)
 
-            eload = eload + take_e[..., None].to(_F32) * d
+            eload = fma32(take_e[..., None].to(_F32), d, eload)
             enpods = enpods + take_e
             escnt = escnt + take_e[..., None] * smatch_i
             eaff = eaff + take_e[..., None] * amatch_i
@@ -370,10 +414,12 @@ def pack(
         # float order
         inv_d = torch.where(d > 0, torch.ones_like(d) / d.clamp(min=_EPS), 0.0)
         ad = torch.where(d > 0, t_alloc * inv_d, inf)  # [T,R]
-        ld = load * inv_d  # [N,B,R]
-        cap_bt = sat_int32(
-            torch.floor((ad[None, None] - ld[:, :, None]).amin(-1) + _EPS)
-        )  # [N,B,T]
+        if fma_cap:
+            # ad − load·inv_d in one rounding, the product on [N,B,R]
+            room = fma32(load[:, :, None], -inv_d, ad)  # [N,B,T,R]
+        else:
+            room = ad[None, None] - (load * inv_d)[:, :, None]
+        cap_bt = sat_int32(torch.floor(room.amin(-1) + _EPS))  # [N,B,T]
         cap_bt = torch.where(types & Fg, cap_bt.clamp(min=0), 0)
         q = cap_bt.amax(-1)  # [N,B]
         q = torch.where(compat_b, q, 0)
@@ -473,7 +519,6 @@ def pack(
         # ---- commit: existing bins ----
         upd = take > 0
         npods2 = npods + take
-        load2 = load + take[..., None].to(_F32) * d
         # a surviving type still fits iff its capacity covered the take
         fits_new = cap_bt >= take[..., None]  # [N,B,T]
         types2 = torch.where(upd[..., None], types & Fg & fits_new, types)
@@ -482,8 +527,6 @@ def pack(
         bhas2 = torch.where(upd[..., None], ch, bhas)
 
         # ---- commit: new bins ----
-        new_load = (_rows(m_overhead, m_star)[:, None, :]
-                    + pods_new[..., None].to(_F32) * d)
         new_types = (
             is_star[:, None, :]
             & new_ok[:, None, :]
@@ -494,7 +537,12 @@ def pack(
                                 gm, gh)  # [N,K,W], [N,K]
         used = used | sel
         npods = torch.where(sel, pods_new, npods2)
-        load = torch.where(sel[..., None], new_load, load2)
+        # load2 = load + take·d on the open bins, new_load = overhead +
+        # pods_new·d on the new ones, each one rounding: the select
+        # commutes with the elementwise multiply-add, so one fma32 does both
+        load = fma32(torch.where(sel, pods_new, take)[..., None].to(_F32), d,
+                     torch.where(sel[..., None],
+                                 _rows(m_overhead, m_star)[:, None, :], load))
         types = torch.where(sel[..., None], new_types, types2)
         bmask = torch.where(sel[..., None, None], nm[:, None], bmask2)
         bhas = torch.where(sel[..., None], nh[:, None], bhas2)
@@ -503,8 +551,12 @@ def pack(
 
         # ---- nodepool limits: subtract worst-case capacity per new bin ----
         n_opened = sel.to(_F32).sum(-1)  # [N]
-        rem = rem.scatter_add(1, star_idx,
-                              (-worst * n_opened[:, None])[:, None, :])
+        if fma_rem:
+            rem = rem.scatter(1, star_idx, fma32(
+                -worst, n_opened[:, None], rem_star)[:, None, :])
+        else:
+            rem = rem.scatter_add(1, star_idx,
+                                  (-worst * n_opened[:, None])[:, None, :])
 
         # ---- conflict-class commit ----
         landed = (upd | (sel & (pods_new > 0)))[..., None]
@@ -623,10 +675,13 @@ def solve_step(args: dict, max_bins: int, with_existing: bool | None = None,
         with_existing = "e_avail" in args
     args = _with_defaults(args)
     F, price, tmpl_full = _feasibility(args)
+    # the reference's solve contracts the capacity formula only when the
+    # bin and type axes match (module docstring)
     out = _pack(args, F, tmpl_full, args["g_count"][None],
                 args["e_avail"][None], max_bins=max_bins,
                 with_existing=with_existing, level_bits=level_bits,
-                max_minv=max_minv)
+                max_minv=max_minv,
+                fma_cap=max_bins == args["t_alloc"].shape[0])
     out = {k: v[0] for k, v in out.items()}
     out["F"] = F
     out["price"] = price
@@ -646,7 +701,7 @@ def probe_step(varying: dict, shared: dict, max_bins: int, max_minv: int,
     F, _, tmpl_full = _feasibility(args)
     out = _pack(args, F, tmpl_full, varying["g_count"], varying["e_avail"],
                 max_bins=max_bins, with_existing=True, level_bits=level_bits,
-                max_minv=max_minv)
+                max_minv=max_minv, fma_cap=False, fma_rem=False)
     placed_g = out["assign"].sum(2, dtype=_I32) + out["assign_e"].sum(
         2, dtype=_I32)
     return placed_g, out["used"].sum(-1, dtype=_I32)

@@ -51,7 +51,12 @@ Knobs (``utils/envknobs.py``), read as the JAX package reads them:
 ``KARPENTER_RELAX_ROUND_WINDOWS`` rounding windows scanned below the LP
                               bound (default 4).
 
-Left out: the replay capture of the joint decision (ROADMAP.md Queue 1).
+Each dispatch records the JAX package's compile-ledger key under the
+``relax.kernel`` family and its ``relax.grid`` padding
+(obs/devplane.py); the joint LP and each rounding window run in the
+``relax.solve`` and ``relax.round`` spans, which end after the host read
+that waits for the device. Left out: the replay capture of the joint
+decision (ROADMAP.md Queue 1 item 1).
 """
 
 from __future__ import annotations
@@ -61,6 +66,8 @@ import time
 import numpy as np
 import torch
 
+from karpenter_tpu_torch import obs
+from karpenter_tpu_torch.obs import devplane
 from karpenter_tpu_torch.ops.kernels import resolve_device
 from karpenter_tpu_torch.utils.envknobs import env_float, env_int, env_str
 
@@ -242,10 +249,14 @@ def lp_bin_floor(snap, est: int, device=None) -> int:
     RELAX_STATS["floor_calls"] += 1
     t0 = time.perf_counter()
     d, n, alloc, cm = (torch.from_numpy(a).to(dev) for a in floor_inputs(snap))
-    lb_t, _ = floor_lb(d, n, alloc, cm, _relax_max_iters(), _relax_tol(),
-                       _relax_rho())
+    key = (d.shape[0], alloc.shape[0], d.shape[1], True,
+           _relax_max_iters(), _relax_tol(), _relax_rho())
+    lb_t, _ = floor_lb(d, n, alloc, cm, key[4], key[5], key[6])
     lb = float(lb_t)
-    RELAX_STATS["kernel_ms"] += (time.perf_counter() - t0) * 1000.0
+    secs = time.perf_counter() - t0
+    devplane.record_dispatch("relax.kernel", ("floor",) + key, secs)
+    devplane.record_padding("relax.grid", G * T, key[0] * key[1])
+    RELAX_STATS["kernel_ms"] += secs * 1000.0
     RELAX_STATS["last_lb"] = lb
     floor = int(np.ceil(lb - 1e-6))
     if floor > est:
@@ -485,9 +496,14 @@ def joint_relax_plan(bundle, candidates, col_arr, contrib, cum, timings,
     t0 = time.perf_counter()
     tensors, (Gp, Ec, Np, R) = _joint_tensors(
         bundle, col_arr, contrib, base_req, claim_compat)
-    t_dev = {k: torch.from_numpy(v).to(dev) for k, v in tensors.items()}
-    out = joint_lp(t_dev, _relax_max_iters(), _relax_tol(), _relax_rho())
+    key = (Gp, Ec, Np, R, _relax_max_iters(), _relax_tol(), _relax_rho())
+    with obs.span("relax.solve", family=f"{Gp}x{Ec}", n=N):
+        t_dev = {k: torch.from_numpy(v).to(dev) for k, v in tensors.items()}
+        out = joint_lp(t_dev, key[4], key[5], key[6])
     secs = time.perf_counter() - t0
+    devplane.record_dispatch("relax.kernel", key, secs)
+    devplane.record_padding("relax.grid", G * (bundle.esnap.E + 1) * N,
+                            Gp * Ec * Np)
     RELAX_STATS["kernel_ms"] += secs * 1000.0
     iters = out["iters"]
     RELAX_STATS["iters"] += iters
@@ -549,12 +565,14 @@ def joint_relax_plan(bundle, candidates, col_arr, contrib, cum, timings,
         # surv rows carry the capacity budget directly (cap * mask)
         surv_w = surv_w[:, :, None] * base_cap[None, :, :]
         t1 = time.perf_counter()
-        bad, claim = round_window(torch.from_numpy(req_w).to(dev),
-                                  torch.from_numpy(surv_w).to(dev),
-                                  d_ord, compat_ord, E)
-        host = torch.stack([bad, claim]).cpu().numpy()
-        bad, claim = host[0], host[1]
+        with obs.span("relax.round", window=len(ks)):
+            bad, claim = round_window(torch.from_numpy(req_w).to(dev),
+                                      torch.from_numpy(surv_w).to(dev),
+                                      d_ord, compat_ord, E)
+            host = torch.stack([bad, claim]).cpu().numpy()
+            bad, claim = host[0], host[1]
         secs = time.perf_counter() - t1
+        devplane.record_dispatch("relax.kernel", ("round",) + key, secs)
         round_ms += secs * 1000.0
         RELAX_STATS["kernel_ms"] += secs * 1000.0
         timings["relax_ms"] += secs * 1000.0

@@ -16,11 +16,13 @@ are masked in place so the E axis never shrinks). A waves plan
 (``ops/waves.py``) enters through ``tensorize(..., device_plan=plan)``.
 
 The priority-tier split (``tensorize(..., tier_of=...)``) orders the scan
-tier-major for the fused admission round. Left out of this copy (later
-slices of the port, see ROADMAP.md): the mesh's ``shard_view``, the
-flight-recorder spans, the tier axis's pad-waste record and the
-metrics-registry counter of clamped negative availabilities (``STATS``
-still counts them).
+tier-major for the fused admission round. Every build and delta opens a
+``cache``-kind flight-recorder span (``tensorize.build``,
+``tensorize.existing``, ``tensorize.delta``); a clamped negative
+availability counts on ``karpenter_tensorize_negative_avail_total`` and
+marks the round with the ``negative-avail`` anomaly; the tier split's
+extra rows record as the ``solve.tiers`` padding site. Left out of this
+copy (ROADMAP.md Queue 1 item 3): the mesh's ``shard_view``.
 
 Group-row cache contract (as in the original): ``tensorize`` caches each
 group's packed requirement rows keyed on (pod scheduling signature, waves
@@ -44,6 +46,7 @@ from karpenter_tpu_torch.scheduling import (
     Taints,
     pod_requirements,
 )
+from karpenter_tpu_torch import obs
 from karpenter_tpu_torch.utils import resources as resutil
 
 WORD = 32
@@ -305,7 +308,7 @@ class ExistingSnapshot:
         return len(self.nodes)
 
     def apply_delta(self, snap, dirty=(), removed=(), added=(),
-                    device_plan=None):
+                    device_plan=None, registry=None):
         """Patch this snapshot in place instead of re-tensorizing the fleet.
 
         ``dirty``: ExistingNodes (already present) whose rows are rebuilt
@@ -319,8 +322,16 @@ class ExistingSnapshot:
         dirty = list(dirty)
         removed = list(removed)
         added = list(added)
+        with obs.span("tensorize.delta", kind="cache", dirty=len(dirty),
+                      removed=len(removed), added=len(added)):
+            return self._apply_delta(snap, dirty, removed, added,
+                                     device_plan, registry)
+
+    def _apply_delta(self, snap, dirty, removed, added, device_plan,
+                     registry):
         if dirty or added:
-            mini = tensorize_existing(snap, dirty + added, device_plan)
+            mini = tensorize_existing(snap, dirty + added, device_plan,
+                                      registry=registry)
         if dirty:
             rows = np.empty(len(dirty), dtype=np.intp)
             for j, node in enumerate(dirty):
@@ -367,15 +378,19 @@ class ExistingSnapshot:
         STATS["delta_rows"] += len(dirty) + len(removed) + len(added)
 
 
-def tensorize_existing(snap: DeviceSnapshot, existing_nodes, device_plan=None):
+def tensorize_existing(snap: DeviceSnapshot, existing_nodes, device_plan=None,
+                       registry=None):
     """Compile ExistingNode capacity into the kernel's pre-loaded-bin
     tensors. `snap` supplies the interned vocabulary/resource axes;
     `device_plan` (waves) supplies the conflict/spread class indices whose
     per-node counts come from each TopologyGroup's hostname domain map."""
-    return _tensorize_existing(snap, existing_nodes, device_plan)
+    with obs.span("tensorize.existing", kind="cache",
+                  nodes=len(existing_nodes)):
+        return _tensorize_existing(snap, existing_nodes, device_plan,
+                                   registry)
 
 
-def _tensorize_existing(snap, existing_nodes, device_plan):
+def _tensorize_existing(snap, existing_nodes, device_plan, registry):
     import time
 
 
@@ -470,8 +485,22 @@ def _tensorize_existing(snap, existing_nodes, device_plan):
     if negative:
         import logging
 
+        from karpenter_tpu_torch.operator import metrics as _m
+
         STATS["negative_avail_total"] += negative
+        if registry is None:
+            registry = _m.REGISTRY
+        registry.counter(
+            _m.TENSORIZE_NEGATIVE_AVAIL,
+            "negative node availabilities clamped to zero during "
+            "tensorization (capacity-accounting bug upstream)",
+        ).inc(negative)
         name, res, v = neg_example
+        # anomaly trigger: a clamp means capacity accounting went wrong
+        # UPSTREAM of this build — the flight recorder keeps the round
+        # that tensorized the bad state (obs module contract)
+        obs.anomaly("negative-avail", registry=registry, count=negative,
+                    node=name, resource=res)
         logging.getLogger(__name__).warning(
             "tensorize_existing clamped %d negative availabilities this "
             "round (first: node %s %s=%s)", negative, name, res, v)
@@ -1075,6 +1104,14 @@ def tensorize(pods, templates, instance_types_by_pool, daemon_overhead=None,
         fused admission round fences tiers on the device. Ignored when
         device_plan is given — the topology path keeps the host cascade.
     """
+    with obs.span("tensorize.build", kind="cache",
+                  plan=device_plan is not None):
+        return _tensorize(pods, templates, instance_types_by_pool,
+                          daemon_overhead, limits, device_plan, tier_of)
+
+
+def _tensorize(pods, templates, instance_types_by_pool, daemon_overhead,
+               limits, device_plan, tier_of=None):
     daemon_overhead = daemon_overhead or {}
     limits = limits or {}
 
@@ -1119,12 +1156,19 @@ def tensorize(pods, templates, instance_types_by_pool, daemon_overhead=None,
             # different tiers must occupy distinct rows to pack in their
             # tier's turn. Same-signature rows share a row_key — the row
             # cache content is tier-independent, so sharing stays sound.
+            n_base = len(base_groups)
             split = []
             for g in base_groups:
                 by_tier: dict = {}
                 for p in g:
                     by_tier.setdefault(tier_of.get(p.uid, 0), []).append(p)
                 split.extend(by_tier.values())
+            # tier-axis pad-waste site: group rows that exist ONLY for
+            # tier fencing (the split's inflation) are the axis's extra
+            # scan cost
+            from karpenter_tpu_torch.obs import devplane as _devplane
+
+            _devplane.record_padding("solve.tiers", n_base, len(split))
             base_groups = split
 
         def _tier(g):

@@ -1,7 +1,7 @@
 """Topology compiler: constraint groups → device group plan.
 
-The port's copy of ``karpenter_tpu/ops/waves.py`` (imports changed, the
-flight-recorder span dropped); host numpy, no device code.
+The port's copy of ``karpenter_tpu/ops/waves.py`` (imports changed);
+host numpy, no device code.
 
 TPU-native reformulation of the reference's TopologyGroup machinery
 (topologygroup.go:167-274). The host engine resolves topology domain-by-
@@ -823,4 +823,11 @@ def compile_topology(groups: list, topology, vectorized: bool | None = None) -> 
         vectorized = (env_str("KARPENTER_WAVES_SEQUENTIAL", "") or "") \
             .strip().lower() not in ("1", "true", "yes", "on")
     cls = _VecCompiler if vectorized else _Compiler
-    return cls(groups, topology).run()
+    # the sequential-oracle path is one of the slow edges the flight
+    # recorder exists to attribute: the span's `vectorized` attr says
+    # which compiler carried this round (karpenter_tpu_torch/obs)
+    from karpenter_tpu_torch import obs
+
+    with obs.span("waves.compile", groups=len(groups),
+                  vectorized=bool(vectorized)):
+        return cls(groups, topology).run()

@@ -12,10 +12,14 @@ Events flow in through `on_event` (the informer layer,
 state/informer/{pod,node,nodeclaim}.go collapsed into one method — our
 hermetic runtime has a single watch stream).
 
+New pod bindings and interruption notices also feed the fleet ledger's
+causal node-lifecycle timeline (obs/timeline.py) — ``bind`` and
+``interrupt`` events on the bounded ring, the latter counting the
+observed interruption-rate feed's notices.
+
 The port's copy of ``karpenter_tpu/state/cluster.py`` with its imports
-changed. Left out: the fleet-ledger timeline events (``bind`` and
-``interrupt``) and the delta journal's wire form (the solver service's),
-none of which the disruption snapshot reads.
+changed. Left out: the delta journal's wire form (the solver service's,
+ROADMAP.md Queue 1 item 2), which the disruption snapshot does not read.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from __future__ import annotations
 import collections
 import itertools
 
+from karpenter_tpu_torch.api import labels as wk
 from karpenter_tpu_torch.state.statenode import StateNode
 from karpenter_tpu_torch.utils import pod as pod_util
 
@@ -265,6 +270,9 @@ class Cluster:
                 sn.pods[key] = pod
                 sn.host_port_usage.add(pod)
                 sn.volume_usage.add(pod, kube=self.store)
+            from karpenter_tpu_torch.obs import timeline
+
+            timeline.record_event("bind", pod.node_name, pod=key)
             if (
                 pod.affinity
                 and pod.affinity.pod_anti_affinity
@@ -366,6 +374,13 @@ class Cluster:
             return True
         sn.interruption_deadline = deadline
         self.mark_unconsolidated(("node", provider_id))
+        labels = sn.labels()
+        from karpenter_tpu_torch.obs import timeline
+
+        timeline.record_event(
+            "interrupt", sn.name or provider_id, deadline=deadline,
+            instance_type=labels.get(wk.INSTANCE_TYPE_LABEL, ""),
+            zone=labels.get(wk.TOPOLOGY_ZONE_LABEL, ""))
         return True
 
     def interruptions_pending(self) -> bool:

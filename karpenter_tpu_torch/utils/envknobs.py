@@ -9,7 +9,13 @@ of ``state/cluster.py``, and the consolidation probe's knobs in
 ``models/solver.py``: ``KARPENTER_NATIVE_CUTOFF``,
 ``KARPENTER_HOST_CUTOFF``, ``KARPENTER_DEVICE_MIN_WORK`` and
 ``KARPENTER_ASSUME_ACCELERATOR``; ``KARPENTER_NATIVE_CACHE`` in
-``native/``)."""
+``native/``; the observability planes' knobs in ``obs/``:
+``KARPENTER_TRACE``, ``KARPENTER_TRACE_DIR``, ``KARPENTER_TRACE_DUMP``,
+``KARPENTER_TRACE_RING``, ``KARPENTER_COMPILE_STEADY_AFTER``,
+``KARPENTER_DECISION_RING``, ``KARPENTER_RUNG_STEADY_AFTER``,
+``KARPENTER_QUALITY_STEADY_AFTER``, ``KARPENTER_QUALITY_DRIFT_TOL``,
+``KARPENTER_QUALITY_MIN_FLOOR``, ``KARPENTER_TIMELINE_RING``,
+``KARPENTER_SAVINGS_DRIFT_TOL`` and ``KARPENTER_SAVINGS_STEADY_AFTER``)."""
 
 from __future__ import annotations
 

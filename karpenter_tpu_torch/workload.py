@@ -582,7 +582,8 @@ def spot_storm(n_nodes=1000, lam=2.0, rounds=10, rate=0.25, step=30.0,
     risk ≥ 0.5 every 2nd round; ``step`` seconds per round, reclaims at
     the deadlines), then four sweeps. ``on_env(env)`` is called once the
     fleet stands, before the storm. Returns the leg's counts and end
-    state; the fleet-ledger reconciliation is not part of the port yet."""
+    state; ``run_spot``'s fleet-ledger reconciliation block (its ``ledger``
+    keys) is left out."""
     import os
     import random
 

@@ -323,16 +323,25 @@ def test_snapshot_advanced_across_an_eviction_wave_equals_a_fresh_build():
     env = config4_env(PORT, 24)
     cons = mod(PORT, "ops.consolidate")
     helpers = mod(PORT, "controllers.disruption.helpers")
+    decisions = mod(PORT, "obs.decisions")
     cache = env.disruption.ctx.snapshot_cache
     log = CommandLog(env)
     env.disruption.poll_period = 0.0
     env.clock.step(20.0)
     compared = advanced_rounds = 0
+    refusals = []  # every declined delta advance, by cause
+
+    def advances():
+        return decisions.counts().get(("snapshot.advance", "delta", "ok"), 0)
+
+    c0 = decisions.counts()
     for _ in range(200):
-        before = dict(cache.stats)
+        before = advances()
         progressed = env._round()
         adv = cache.refresh(env.provisioner, env.cluster, env.store)
-        if adv is not None and cache.stats["advances"] > before["advances"]:
+        if cache._last_refusal is not None:
+            refusals.append(cache._last_refusal)
+        if adv is not None and advances() > before:
             advanced_rounds += 1
         if adv is not None and log.commands:
             d = env.disruption
@@ -364,7 +373,10 @@ def test_snapshot_advanced_across_an_eviction_wave_equals_a_fresh_build():
             break
     assert log.commands, "no command ran"
     assert compared >= 2 and advanced_rounds >= 2
-    assert not cache.stats["refusals"], cache.stats
+    rebuilds = {k: n - c0.get(k, 0) for k, n in decisions.counts().items()
+                if k[:2] == ("snapshot.advance", "rebuild")
+                and n > c0.get(k, 0)}
+    assert not refusals and not rebuilds, (refusals, rebuilds)
 
 
 # ---------------------------------------------------------------------------

@@ -12,8 +12,11 @@
   provisions a manifest of one v1 and one v1beta1 NodePool to the node
   count and bound pods of the JAX package's ``main`` on the same file,
   with routing off and on in both; ``/metrics`` and ``/healthz`` serve the
-  registry, ``KARPENTER_METRICS_BIND`` narrows the listener, and the
-  endpoints not in the port answer 404; an unknown kind is rejected;
+  registry, ``/slo``, ``/introspect`` and ``/usage`` serve the planes' JSON
+  with the JAX package's top-level keys (the endpoint cases of
+  ``test_devplane.py``, ``test_decisions.py`` and ``test_timeline.py``),
+  ``KARPENTER_METRICS_BIND`` narrows the listener; an unknown kind is
+  rejected;
   ``--solver`` and ``KARPENTER_SOLVER_TARGET`` are refused with exit code
   2; ``main()`` with no ``--device`` raises without CUDA; the module runs
   as a program.
@@ -272,10 +275,28 @@ def test_metrics_endpoint_serves_registry(tmp_path, fast_batches):
         assert "karpenter_" in body.decode()
         health = urllib.request.urlopen(f"{base}/healthz", timeout=5).read()
         assert health.decode() == "ok"
-        for path in ("/slo", "/introspect", "/usage"):
-            with pytest.raises(urllib.error.HTTPError) as e:
-                urllib.request.urlopen(f"{base}{path}", timeout=5)
-            assert e.value.code == 404
+        from karpenter_tpu.obs import decisions as jdecisions
+        from karpenter_tpu.obs import devplane as jdevplane
+        from karpenter_tpu.obs import timeline as jtimeline
+
+        want = {"/slo": jdevplane.slo_snapshot(),
+                "/introspect": jdecisions.introspect_snapshot(),
+                "/usage": jtimeline.usage_snapshot()}
+        for path, jsnap in want.items():
+            r = urllib.request.urlopen(f"{base}{path}", timeout=5)
+            assert r.status == 200
+            assert r.headers["Content-Type"] == "application/json"
+            doc = json.loads(r.read().decode())
+            assert set(doc) == set(jsnap), path
+        # the round this environment ran is on the planes
+        intro = json.loads(urllib.request.urlopen(
+            f"{base}/introspect", timeout=5).read().decode())
+        assert "solver.route" in intro["sites"]
+        kinds = intro["timeline"]["ring"]["kinds"]
+        assert kinds.get("launch", 0) > 0 and kinds.get("bind", 0) > 0
+        with pytest.raises(urllib.error.HTTPError) as e:
+            urllib.request.urlopen(f"{base}/nope", timeout=5)
+        assert e.value.code == 404
     finally:
         server.shutdown()
         server.server_close()
@@ -346,3 +367,61 @@ def test_module_runs_as_a_program(tmp_path):
     assert out.returncode == 0, out.stderr
     nodes, bound = _ended(out.stderr)
     assert nodes > 0 and bound == 64
+
+
+def test_program_serves_the_planes(tmp_path):
+    """``--metrics`` on the program: ``/slo``, ``/introspect`` and
+    ``/usage`` answer 200 with JSON while it runs, and ``/introspect``'s
+    timeline counts a launch and a registration per node and a bind per
+    pod of the run."""
+    import os
+    import socket
+    import time
+
+    manifest = write_manifest(tmp_path / "m.json", replicas=1)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, KARPENTER_BATCH_IDLE_DURATION="0",
+               KARPENTER_BATCH_MAX_DURATION="0",
+               KARPENTER_METRICS_PORT=str(port),
+               KARPENTER_METRICS_BIND="127.0.0.1",
+               KARPENTER_TRACE_DIR=str(tmp_path / "traces"))
+    err_path = tmp_path / "err"
+    planes: dict = {}
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "karpenter_tpu_torch", "--device", "cpu",
+             "--manifest", manifest, "--tick", "0.1", "--max-ticks", "30",
+             "--metrics"], cwd=ROOT, env=env, stdout=subprocess.DEVNULL,
+            stderr=err)
+        try:
+            while proc.poll() is None:
+                try:
+                    got = {}
+                    for path in ("/slo", "/introspect", "/usage"):
+                        with urllib.request.urlopen(
+                                f"http://127.0.0.1:{port}{path}",
+                                timeout=5) as r:
+                            assert r.status == 200
+                            assert r.headers["Content-Type"] == \
+                                "application/json"
+                            got[path] = json.loads(r.read().decode())
+                    planes = got
+                except (OSError, ValueError):
+                    pass
+                time.sleep(0.1)
+            proc.wait(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    assert proc.returncode == 0, err_path.read_text()
+    nodes, bound = _ended(err_path.read_text())
+    assert nodes > 0 and bound == 64
+    kinds = planes["/introspect"]["timeline"]["ring"]["kinds"]
+    assert kinds.get("launch") == kinds.get("register") == nodes
+    assert kinds.get("bind") == bound
+    assert "solver.route" in planes["/introspect"]["sites"]
+    assert "compile_ledger" in planes["/slo"]
+    assert "total_device_seconds" in planes["/usage"]

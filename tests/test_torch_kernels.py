@@ -197,6 +197,94 @@ def test_bins_run_dry_bit_equal():
         assert np.array_equal(got[key], want[key]), key
 
 
+def _tie_args(monkeypatch):
+    """The kernel arguments the JAX solver dispatches for 400 pods of 200
+    cpu sizes (``0.1 + (i % 200) · 0.01`` cpu, 1 GiB) on one pool over
+    ``benchmark_catalog(64)``: Gp 256, Tp 64, Bp 64."""
+    from karpenter_tpu.cloudprovider.catalog import benchmark_catalog
+    from karpenter_tpu.models import ClaimTemplate
+    from karpenter_tpu.models import solver as jsolver
+    from tests.test_torch_operator import JAX, Kit
+
+    monkeypatch.setenv("KARPENTER_RELAX", "0")
+    monkeypatch.setenv("KARPENTER_NATIVE_CUTOFF", "0")
+    seen = []
+    inner = jsolver.TPUSolver._invoke_inner
+
+    def spy(self, args, key, max_bins):
+        seen.append(({k: np.asarray(v) for k, v in args.items()}, key,
+                     max_bins))
+        return inner(self, args, key, max_bins)
+
+    monkeypatch.setattr(jsolver.TPUSolver, "_invoke_inner", spy)
+    k = Kit(JAX)
+    pool = k.nodepool()
+    jsolver.TPUSolver().solve(
+        [k.pod(f"p{i}", cpu=0.1 + (i % 200) * 0.01) for i in range(400)],
+        [ClaimTemplate(pool)], {pool.name: benchmark_catalog(64)})
+    (args, key, max_bins), = seen
+    return args, key[-2], max_bins
+
+
+def test_multiply_add_tie_bit_equal(monkeypatch):
+    """The shape where the op-by-op capacity ``ad − load·inv_d`` gives
+    1.0 at bin 1 for group row 126 and XLA's fused multiply-add gives
+    0.9999989: the port's pack floors it as the jnp loop does."""
+    args, level_bits, max_bins = _tie_args(monkeypatch)
+    assert (args["g_demand"].shape[0], args["t_alloc"].shape[0],
+            max_bins) == (256, 64, 64)
+    want, got = run_both(args, max_bins=max_bins, level_bits=level_bits)
+    for key in ("assign", "assign_e", "used", "tmpl", "F", "npods",
+                "types"):
+        assert np.array_equal(got[key], want[key]), key
+    # both 0.83-cpu pods of row 126 land on bin 5, none on bin 1
+    assert got["assign"][126, 1] == 0 and got["assign"][126, 5] == 2
+
+
+def _near_ties(seed, n=4096):
+    """float32 triples whose ``c + a·b`` sits within a few ulps of an
+    integer — where one rounding and two part — plus the bin-1 case."""
+    rng = np.random.default_rng(seed)
+    b = (1.0 / rng.uniform(0.05, 2.5, n)).astype(np.float32)
+    a = -rng.uniform(1.0, 80.0, n).astype(np.float32)
+    target = np.round(-a * b) + rng.integers(0, 4, n)
+    c = (target + rng.integers(-3, 4, n) * np.spacing(
+        target.astype(np.float32))).astype(np.float32)
+    inv = np.float32(1.0) / np.float32(0.83)
+    a[:3] = [-63.07, 63.07, 2.0]
+    b[:3] = [inv, -inv, 0.83]
+    c[:3] = [np.float32(63.9) * inv, np.float32(63.9) * inv, 63.07]
+    return a, b, c
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_fma32_matches_xla_contraction(seed):
+    """``fma32`` against ``jax.jit`` of the same expression, which XLA on
+    the CPU contracts to one fused multiply-add."""
+    import jax
+
+    a, b, c = _near_ties(seed)
+    want = np.asarray(jax.jit(lambda a, b, c: c + a * b)(a, b, c))
+    got = tkernels.fma32(torch.from_numpy(a), torch.from_numpy(b),
+                         torch.from_numpy(c)).numpy()
+    assert got.dtype == np.float32
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    # the helper rounds once where the op-by-op form rounds twice
+    twice = (c + a * b).astype(np.float32)
+    assert (twice != got).any()
+    # the bin-1 capacity: 1.0 op by op, just under 1 fused
+    assert np.floor(twice[0] + np.float32(1e-6)) == 1.0
+    assert np.floor(got[0] + np.float32(1e-6)) == 0.0
+
+
+def test_fma32_passes_infinities():
+    inf = float("inf")
+    got = tkernels.fma32(torch.tensor([2.0, 0.0, -3.0]),
+                         torch.tensor([0.0, -0.0, 1.0]),
+                         torch.tensor([inf, inf, -inf]))
+    assert got.tolist() == [inf, inf, -inf]
+
+
 def test_saturating_cast_matches_xla():
     """XLA's float→int32 saturates; torch's cast does not, so the port
     routes every floor→int32 through sat_int32."""

@@ -160,8 +160,8 @@ class CommandLog:
             return real(cmd, method)
 
         d._execute = execute
-        # the global method's verdict reason (the JAX package writes it to
-        # its decision ledger, the port keeps it on the method)
+        # the global method's verdict reason, as each package hands it
+        # to its decision ledger
         for method in d.methods:
             if hasattr(method, "_verdict"):
                 method._verdict = self._verdict_spy(method)
