@@ -105,9 +105,10 @@ It imports nothing of JAX or of ``karpenter_tpu``.
 10. The interruption path, the sixth main path: the spot storm of
    ``perf/run.py``'s ``run_spot`` (``workload.spot_storm``) on
    ``spot_env(100)`` — cut from 1,000 nodes, see ``SPOT_NODES`` — with
-   ``ChaosCloud(random.Random(7))``, 10 rounds, risk-aware (λ 2.0) and
-   risk-blind (λ 0) on the card, the risk-aware leg again on the CPU
-   plain path, ``KARPENTER_RELAX=1`` on both. Each leg must give the JAX
+   ``ChaosCloud(random.Random(7))``, 6 of its 10 rounds (cut: see
+   ``SPOT_STORM_CUT``), risk-aware (λ 2.0) on the card and again on the
+   CPU plain path, risk-blind (λ 0) on the card, ``KARPENTER_RELAX=1``
+   on all three. Each leg must give the JAX
    package's counts (notices, creates, proactive drains, degradations,
    end nodes, pods bound, end cost, no pod lost with lead) and the three
    gates must hold; the card's and the CPU's commands must be equal;
@@ -171,6 +172,50 @@ It imports nothing of JAX or of ``karpenter_tpu``.
    ``/usage`` must answer 200 with JSON, ``/introspect``'s timeline
    counting the same launches, registrations and binds.
 
+13. Replay capsules (``karpenter_tpu_torch/obs/capsule.py``), the capsule
+   phase, with routing off as in phases 3-10 and ``KARPENTER_CAPSULE=1``
+   (every recorded round writes its capsule): the headline solve as one
+   traced round, ``consolidation_env(2000)`` built and given one
+   disruption round (2,000 → 667 nodes), the single-node probe over the
+   survivors, ``absorb_slack``'s notice and ``preempt_env(8)``'s
+   preemption ladder. The runs must reach six seams — ``solver.invoke``,
+   ``relax.dispatch``, ``global.dispatch``, ``probe.dispatch``,
+   ``interruption.dispatch``, ``preempt.dispatch`` — and each must have
+   a capsule (a seam whose capture a later one of the same round
+   displaced is written from its last capture, and named so). Each
+   seam's last capsule, and the headline's, replays ``exact`` on the
+   card and on the CPU plain path; the headline capsule's A/B table
+   (device, native, host; the mesh rungs ineligible) is printed, and
+   ``python -m karpenter_tpu_torch.obs replay`` runs as a program on it
+   (``--ab``, on the card) and on the absorb capsule (``--device cpu``).
+   One ``{"capsule": ...}`` line: capsules per seam, their bytes, the
+   replay ms per rung, compat launches of the runs and the card replays.
+   Each row seam's capsule arguments give two compat cases (its G×T and
+   1×(Np·Bp) products) checked against the plain version and timed.
+14. The solver service (``karpenter_tpu_torch/service``), the service
+   phase, with routing off in the server and the oracles alike (at the
+   defaults the tenants' 40-pod solves take the native engine, in
+   process and in the server's fold): ``python -m karpenter_tpu_torch.
+   service.solver_service`` started as its own process on the card
+   (coalescing window 4 ms, ``KARPENTER_CAPSULE=1``); the headline
+   through ``RemoteSolver`` (a CPU client) must equal the in-process
+   ``TorchSolver()`` solve bit for bit in its arguments and outputs, 1,128
+   nodes (``KARPENTER_RELAX=0`` on both: the client's plan runs no LP
+   floor); then ``workload.run_multitenant`` — 8 tenants × 3 rounds × 40
+   pods over one server in session mode — with every tenant's claims
+   equal to its solo in-process oracle on the card, 8 full uploads, no
+   resync, no remote fallback and the billing plane reconciled; then a
+   burst of the 8 tenants' snapshots released together, which the window
+   must fold. The server's capsules: every coalesced row replays
+   ``exact`` on the card and on the CPU plain path, and so does the
+   headline's; one batch of rows is timed on the card as one batched
+   dispatch and as single dispatches (compat launches, device ms,
+   kernels, wall; equal outputs). The server prints its compat launches
+   at exit; they must cover its card dispatches. A batched row's G×T,
+   G×M and 1×B compat products join the compat cases. One
+   ``{"service": ...}`` line with the per-tenant p50/p99 from ``/slo``
+   and the coalesce rate.
+
 ``python3 chip_smoke.py --full-storm [N]`` runs only the storm at
 ``perf/run.py``'s size (N 1,000) with the ladder on, round by round.
 
@@ -178,8 +223,8 @@ Prints one ``{"kernels": [...]}`` line, one ``{"solve": ...}`` line, one
 ``{"live_round": ...}`` line, one ``{"consolidation": ...}`` line, one
 ``{"operator": ...}`` line, one ``{"admission": ...}`` line, one
 ``{"spot": ...}`` line, one ``{"engines": ...}`` line, one ``{"obs": ...}``
-line, the card line, and as its last line ``{"ok": true, "device":
-{...}}``. Any
+line, one ``{"capsule": ...}`` line, one ``{"service": ...}`` line, the
+card line, and as its last line ``{"ok": true, "device": {...}}``. Any
 failure raises and exits non-zero; so does a machine without CUDA.
 """
 
@@ -391,6 +436,31 @@ def bins_case(args, G, B, kernels):
             torch.zeros((1, K), dtype=torch.bool, device=dev),
             bmask.contiguous(), bhas.contiguous(),
             torch.zeros((B, K), dtype=torch.bool, device=dev)]
+
+
+def capsule_cases(label, cap, kernels) -> list:
+    """The compat products a capsule's dispatch runs, from its kernel
+    arguments uploaded to the card: a solve (``solver.invoke``,
+    ``service.solve``) G×T, G×M and 1×B; a counterfactual-row seam G×T and
+    1×(Np·Bp), Np the rows padded as the dispatch pads them."""
+    import torch
+
+    from karpenter_tpu_torch.ops import consolidate as cons
+
+    a = kernels.from_kernel_args(cap.args(), torch.device("cuda"))
+    gt = [a[k] for k in ("g_mask", "g_has", "g_tol",
+                         "t_mask", "t_has", "t_tol")]
+    mb = int(cap.static("max_bins", 1))
+    if cap.seam in ("solver.invoke", "service.solve"):
+        G = int((np.asarray(cap.args()["g_count"]) > 0).sum())
+        gm = gt[:3] + [a[k] for k in ("m_mask", "m_has", "m_tol")]
+        return [(f"{label} GxT", gt), (f"{label} GxM", gm),
+                (f"{label} 1xB", bins_case(a, G, mb, kernels))]
+    rows = np.asarray(cap.sidecar("g_count_rows"))
+    G = int((rows > 0).any(axis=0).sum())
+    Np = cons._pow2(int(rows.shape[0]), lo=4)
+    return [(f"{label} GxT", gt),
+            (f"{label} 1xNpB", bins_case(a, G, Np * mb, kernels))]
 
 
 def time_compat(inp, cuda_kernels) -> dict:
@@ -717,10 +787,10 @@ def consolidation_phase(cuda_kernels, kernels) -> tuple:
             ships=relax.RELAX_STATS["ships"]))
         return plan, cause
 
-    def recording_lp(t, max_iters, tol, rho):
+    def recording_lp(t, max_iters, tol, rho, **kw):
         if t["d"].is_cuda:  # not the CPU re-run's
             lps.append((t, max_iters, tol, rho))
-        return real_lp(t, max_iters, tol, rho)
+        return real_lp(t, max_iters, tol, rho, **kw)
 
     def relax_decision(plan, cause):
         if plan is None:
@@ -1365,6 +1435,30 @@ PREEMPT_EXPECT = dict(hi_bound=8, confirmed=8, declined=0, evictions=16)
 # (``--full-storm`` runs it)
 SPOT_NODES, SPOT_NODES_FULL = 100, 1000
 SPOT_STORM = dict(rounds=10, rate=0.25, step=30.0, seed=7, shift=1.25)
+# the spot phase runs the storm cut to 6 of its 10 rounds, every leg
+# pinned to the card: the risk-blind leg's 1,206 small solves took
+# 158-274 s of launch-bound wall there at 10 rounds, which left the whole
+# script 1,077 s on a slow host against its 1,200 s limit. 6 rounds keep
+# every storm event (the no-lead notice at round 4, price shifts at rounds
+# 2, 4 and 6) and the three gates; at 4 rounds the blind fleet ends the
+# cheaper (31.25 against 38.0) and the cost gate has nothing to hold. The
+# engines phase's storm with the ladder runs all 10 rounds.
+SPOT_STORM_CUT = dict(SPOT_STORM, rounds=6)
+SPOT_CUT = ("the spot phase's storm at 6 of its 10 rounds (pinned to the "
+            "card, the risk-blind leg's 1,206 small solves took 158-274 s "
+            "at 10); the engines phase runs all 10 with the ladder")
+# the JAX package's counts at 6 rounds (``PERF_SPOT_NODES=100
+# PERF_SPOT_ROUNDS=6 KARPENTER_RELAX=1 python perf/run.py spot``)
+SPOT_EXPECT_CUT = {
+    "risk_aware": dict(lam=2.0, notices=5, creates=5, proactive_drains=4,
+                       deadline_degradations=1, end_nodes=100,
+                       pods_bound=300, end_cost=38.0, pods_lost_with_lead=0),
+    "risk_blind": dict(lam=0.0, notices=142, creates=141,
+                       proactive_drains=141, deadline_degradations=1,
+                       end_nodes=100, pods_bound=300, end_cost=38.839375,
+                       pods_lost_with_lead=0),
+}
+# ... and at all 10 (``PERF_SPOT_ROUNDS=10``)
 SPOT_EXPECT = {
     "risk_aware": dict(lam=2.0, notices=11, creates=10, proactive_drains=9,
                        deadline_degradations=2, end_nodes=100,
@@ -1871,10 +1965,11 @@ def admission_phase(cuda_kernels, kernels) -> tuple:
     return line, launches, cases
 
 
-def spot_leg(device, kernels, cuda_kernels, cons, lam, n_nodes) -> dict:
-    """One leg of the storm (``workload.spot_storm``) with
-    ``TorchSolver(device)`` (None: the card): the command log, the
-    counts, the solver calls with their wall times, the absorb probe's
+def spot_leg(device, kernels, cuda_kernels, cons, lam, n_nodes,
+             storm=SPOT_STORM) -> dict:
+    """One leg of the storm (``workload.spot_storm`` with ``storm``'s
+    settings) with ``TorchSolver(device)`` (None: the card): the command
+    log, the counts, the solver calls with their wall times, the absorb probe's
     dispatches and answers, and the compat launches, zeroed once the
     fleet stands and read after the storm."""
     import torch
@@ -1926,7 +2021,7 @@ def spot_leg(device, kernels, cuda_kernels, cons, lam, n_nodes) -> dict:
 
         built["t0"] = time.perf_counter()
         leg = spot_storm(n_nodes, lam=lam, solver=TorchSolver(device),
-                         on_env=on_env, **SPOT_STORM)
+                         on_env=on_env, **storm)
         if on_card:
             torch.cuda.synchronize()
         storm_s = time.perf_counter() - built["t_storm"]
@@ -2043,8 +2138,9 @@ def absorb_slack(device, kernels, cuda_kernels, cons) -> dict:
 
 
 def spot_phase(cuda_kernels, kernels) -> tuple:
-    """The storm on the card (both legs) and its risk-aware leg on the CPU
-    plain path: ``(line, launches, cases)``."""
+    """The storm cut to ``SPOT_STORM_CUT``'s rounds: its risk-aware leg on
+    the card and on the CPU plain path, its risk-blind leg on the card:
+    ``(line, launches, cases)``."""
     from karpenter_tpu_torch.ops import consolidate as cons
     from karpenter_tpu_torch.workload import spot_gates
 
@@ -2052,21 +2148,22 @@ def spot_phase(cuda_kernels, kernels) -> tuple:
     # the relax rung's default on the card (on) for both paths, so the
     # CPU plain path takes the same rungs
     with env_knobs(KARPENTER_RELAX="1"):
-        for name, want in SPOT_EXPECT.items():
+        for name, want in SPOT_EXPECT_CUT.items():
             t0 = time.perf_counter()
             legs[name] = spot_leg(None, kernels, cuda_kernels, cons,
-                                  want["lam"], SPOT_NODES)
+                                  want["lam"], SPOT_NODES, SPOT_STORM_CUT)
             seconds[name] = time.perf_counter() - t0
         t0 = time.perf_counter()
         cpu = spot_leg("cpu", kernels, cuda_kernels, cons,
-                       SPOT_EXPECT["risk_aware"]["lam"], SPOT_NODES)
+                       SPOT_EXPECT_CUT["risk_aware"]["lam"], SPOT_NODES,
+                       SPOT_STORM_CUT)
         seconds["risk_aware_cpu"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         slack = {"card": absorb_slack(None, kernels, cuda_kernels, cons),
                  "cpu": absorb_slack("cpu", kernels, cuda_kernels, cons)}
         seconds["absorb_slack"] = time.perf_counter() - t0
 
-    for name, want in SPOT_EXPECT.items():
+    for name, want in SPOT_EXPECT_CUT.items():
         got = legs[name]
         seen = {k: got[k] for k in want if k != "lam"}
         check(seen == {k: v for k, v in want.items() if k != "lam"},
@@ -2077,7 +2174,7 @@ def spot_phase(cuda_kernels, kernels) -> tuple:
               f"2 + Gp per solve step and probe chunk "
               f"({got['compat_expected']})")
     aware, blind = legs["risk_aware"], legs["risk_blind"]
-    check(aware["absorb_dispatches"] + blind["absorb_dispatches"] > 0,
+    check(aware["absorb_dispatches"] > 0,
           "spot: the absorb probe never dispatched on the card")
     diff = next((i for i, (a, b) in enumerate(zip(aware["commands"],
                                                   cpu["commands"]))
@@ -2088,8 +2185,9 @@ def spot_phase(cuda_kernels, kernels) -> tuple:
           f"the CPU plain path from command {diff}: "
           f"{aware['commands'][diff:diff + 2]} against "
           f"{cpu['commands'][diff:diff + 2]}")
-    check({k: aware[k] for k in SPOT_EXPECT["risk_aware"] if k != "lam"}
-          == {k: cpu[k] for k in SPOT_EXPECT["risk_aware"] if k != "lam"},
+    check({k: aware[k] for k in SPOT_EXPECT_CUT["risk_aware"] if k != "lam"}
+          == {k: cpu[k] for k in SPOT_EXPECT_CUT["risk_aware"]
+              if k != "lam"},
           "spot: the risk-aware leg ends differently on the CPU")
     gates = spot_gates(aware, blind, SPOT_NODES)
     check(gates["cost_beats_blind"] and gates["churn_bound_ok"]
@@ -2111,7 +2209,7 @@ def spot_phase(cuda_kernels, kernels) -> tuple:
           f"{slack}")
 
     # the last absorb row, again on the CPU, and its compat products
-    probe = aware["last_absorb"] or blind["last_absorb"]
+    probe = aware["last_absorb"]
     shared, Gp, Ep, e_avail, mm, gk, cols = probe["args"]
     want = cons.dispatch_counterfactual_rows(
         {k: v.cpu() for k, v in shared.items()}, Gp, Ep, e_avail, mm, gk,
@@ -2125,9 +2223,7 @@ def spot_phase(cuda_kernels, kernels) -> tuple:
              ("absorb 1xNpB", bins_case(shared, Gp, Np * probe["max_bins"],
                                         kernels))]
     drop = ("commands", "last_absorb", "last_step")
-    HANDOFF["storm solve"] = blind["last_step"]
-    HANDOFF["storm commands"] = {"risk_aware": aware["commands"],
-                                 "risk_blind": blind["commands"]}
+    HANDOFF["storm solve"] = aware["last_step"]
 
     def brief(leg):
         return {k: v for k, v in leg.items() if k not in drop} | {
@@ -2135,12 +2231,13 @@ def spot_phase(cuda_kernels, kernels) -> tuple:
             "methods": sorted({c[0] for c in leg["commands"]})}
 
     line = {"spot": {
-        "nodes": SPOT_NODES, **SPOT_STORM,
+        "nodes": SPOT_NODES, **SPOT_STORM_CUT,
         "reduced": {"nodes": f"{SPOT_NODES_FULL} -> {SPOT_NODES}",
                     "why": "the storm's solver calls grow with the fleet "
                            "(1,244 at 100 nodes) and at 1,000 nodes each "
                            "costs the host ~0.14 s even with the ladder "
-                           "on; one leg outlasts the run's time limit"},
+                           "on; one leg outlasts the run's time limit",
+                    "rounds": SPOT_CUT},
         "risk_aware": brief(aware), "risk_blind": brief(blind),
         "risk_aware_cpu": brief(cpu), "absorb_slack": slack,
         "gates": gates, "seconds": seconds,
@@ -2154,8 +2251,7 @@ def spot_phase(cuda_kernels, kernels) -> tuple:
 # ---- the engine ladder and the entry point (the seventh main path) ----
 
 # what the earlier phases hand the engines phase: the numpy-able kernel
-# arguments of their solves and probes, by name, and the pinned storm's
-# commands
+# arguments of their solves and probes, by name
 HANDOFF: dict = {}
 # the observability planes' captures the obs phase reads: the operator
 # loop's on the card and on the CPU
@@ -2365,9 +2461,7 @@ def routed_storm(kernels, cuda_kernels) -> dict:
                                  "solve_ms_p90", "solve_steps",
                                  "probe_dispatches", "storm_s", "engines",
                                  "compat_launches")},
-            seconds=seconds[name],
-            commands_equal_pinned=(got["commands"]
-                                   == HANDOFF["storm commands"][name]))
+            seconds=seconds[name])
     gates = spot_gates(legs["risk_aware"], legs["risk_blind"], SPOT_NODES)
     check(gates["cost_beats_blind"] and gates["churn_bound_ok"]
           and gates["zero_late_drain_ok"], f"engines storm gates: {gates}")
@@ -2765,6 +2859,500 @@ def obs_phase(card: str, trace_dir: Path, headline: dict) -> dict:
     }}
 
 
+
+# ---- replay capsules and the solver service (the ninth main path) ----
+
+# the capsule phase's seams (obs/capsule.py SEAMS less the mesh's, which
+# the port does not have yet): each one the runs below reach
+CAPSULE_SEAMS = ("solver.invoke", "probe.dispatch", "global.dispatch",
+                 "relax.dispatch", "interruption.dispatch",
+                 "preempt.dispatch", "service.solve")
+# the multi-tenant fleet (perf/run.py run_multitenant): 8 tenants x 3
+# rounds x 40 pods over benchmark_catalog(40), one default NodePool,
+# coalescing window 4 ms
+TENANTS, TENANT_ROUNDS, TENANT_PODS = 8, 3, 40
+
+
+class CaptureSpy:
+    """Every replay capture the process records while open: the count and
+    the last record per seam (the record is a reference, as the trace
+    holds it)."""
+
+    def __init__(self):
+        from karpenter_tpu_torch.obs import capsule
+
+        self.capsule = capsule
+        self.counts: dict = {}
+        self.last: dict = {}
+
+    def __enter__(self):
+        self.real = self.capsule.record_capture
+
+        def spy(seam, *a, **kw):
+            rec = self.real(seam, *a, **kw)
+            if rec is not None:
+                self.counts[seam] = self.counts.get(seam, 0) + 1
+                self.last[seam] = rec
+            return rec
+
+        self.capsule.record_capture = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.capsule.record_capture = self.real
+
+
+def _capsules_by_seam(directory: Path) -> dict:
+    """``{seam: [paths]}`` of the capsule files in ``directory``, oldest
+    first."""
+    from karpenter_tpu_torch.obs import capsule
+
+    out: dict = {}
+    for path in sorted(directory.glob("*.capsule.npz"),
+                       key=lambda p: p.stat().st_mtime_ns):
+        out.setdefault(capsule.load(str(path)).seam, []).append(path)
+    return out
+
+
+def replay_both(path: Path) -> dict:
+    """One capsule replayed on the card and on the CPU plain path, each
+    graded ``exact`` or the run fails; the wall of each replay."""
+    import torch
+
+    from karpenter_tpu_torch.obs import capsule
+
+    cap = capsule.load(str(path))
+    out = {"seam": cap.seam, "engine": cap.engine,
+           "bytes": int(cap.meta["nbytes"]), "file_bytes": path.stat().st_size}
+    for name, device in (("card", "cuda"), ("cpu", "cpu")):
+        t0 = time.perf_counter()
+        r = capsule.replay(cap, device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        out[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3
+        out[f"{name}_rung"] = r["rung"]
+        check(r["parity"] == "exact" and r["rung_match"],
+              f"capsule {path.name} ({cap.seam}) replays {r['parity']} on "
+              f"the {name}: {r}")
+    return out
+
+
+def capsule_phase(cuda_kernels, kernels, workdir: Path) -> tuple:
+    """Replay capsules on the card: ``KARPENTER_CAPSULE=1`` over the
+    headline solve and one operator round of each kind — provisioning
+    and a disruption round of the 2,000-node fleet, an interruption
+    notice (``absorb_slack``) and the preemption ladder (``preempt_env``)
+    — the recorder writing one capsule per round; every seam the runs
+    reach must have a capsule (a seam whose capture a later one of the
+    same round displaced is written from its last capture), and each
+    replays ``exact`` on the card and on the CPU. The headline capsule's
+    A/B table (device, native, host) is printed, and the CLI runs as a
+    program on it. Returns ``(line, launches, cases)``: the row seams'
+    compat products join the compat cases."""
+    import torch
+
+    from karpenter_tpu_torch import obs
+    from karpenter_tpu_torch.controllers.disruption.helpers import (
+        get_candidates,
+    )
+    from karpenter_tpu_torch.models import TorchSolver
+    from karpenter_tpu_torch.obs import capsule
+    from karpenter_tpu_torch.obs.__main__ import render_ab
+    from karpenter_tpu_torch.ops import consolidate as cons
+    from karpenter_tpu_torch.workload import (
+        _pod,
+        build_workload,
+        consolidation_env,
+        preempt_env,
+    )
+
+    cdir = workdir / "capsules"
+    cdir.mkdir()
+    obs.configure(dump_dir=str(cdir))
+    launches = 0
+
+    def take() -> int:
+        n = cuda_kernels.LAUNCHES["compat"]
+        cuda_kernels.reset_launches()
+        return n
+
+    runs = {}
+    # the device path, as phases 3-10 keep it: every seam on the card
+    with pinned(), env_knobs(KARPENTER_CAPSULE="1",
+                             KARPENTER_TRACE_DIR=str(cdir)), \
+            CaptureSpy() as spy:
+        cuda_kernels.reset_launches()
+        # the headline, as one traced round
+        t0 = time.perf_counter()
+        pods, templates, its = build_workload(N_PODS, N_TYPES)
+        with obs.round_trace("capsule-headline"):
+            res = TorchSolver().solve(pods, templates, its)
+        torch.cuda.synchronize()
+        check(res.scheduled_pod_count() == N_PODS, "capsule headline")
+        runs["headline_s"] = time.perf_counter() - t0
+        launches += take()
+        # the operator loop: provisioning rounds, then one disruption round
+        t0 = time.perf_counter()
+        env = consolidation_env(OPERATOR_NODES, solver=TorchSolver())
+        start_nodes = len(env.store.list("nodes"))
+        env.clock.step(20.0)
+        env.run_until_idle(max_rounds=500)
+        torch.cuda.synchronize()
+        runs["operator_s"] = time.perf_counter() - t0
+        runs["operator_nodes"] = [start_nodes, len(env.store.list("nodes"))]
+        check(runs["operator_nodes"][1] < start_nodes,
+              f"capsule: the disruption round retired nothing {runs}")
+        # the per-candidate probe over the round's survivors, as the
+        # single-node method asks it
+        d = env.disruption
+        cands = get_candidates(d.cluster, d.store, d.cloud, d.clock,
+                               queue=d.queue)
+        with obs.round_trace("capsule-probe"):
+            single = cons.batched_single_feasible(
+                d.provisioner, d.cluster, d.store, list(cands))
+        check(single is not None, "capsule: the probe did not dispatch")
+        launches += take()
+        # an interruption notice the survivors absorb
+        t0 = time.perf_counter()
+        slack = absorb_slack(None, kernels, cuda_kernels, cons)
+        check(slack["answers"] == [True], f"capsule: absorb {slack}")
+        runs["interruption_s"] = time.perf_counter() - t0
+        launches += take()
+        # the preemption ladder
+        t0 = time.perf_counter()
+        penv = preempt_env(PREEMPT_NODES, solver=TorchSolver())
+        for i in range(PREEMPT_NODES):
+            penv.store.create("pods", _pod(f"hi{i}", 6.0, 4.0,
+                                           priority_class_name="high"))
+        penv.run_until_idle(max_rounds=500)
+        torch.cuda.synchronize()
+        runs["preempt_s"] = time.perf_counter() - t0
+        launches += take()
+    written = _capsules_by_seam(cdir)
+    explicit = {}
+    for seam, rec in spy.last.items():
+        if seam not in written:
+            # a later capture of the same round took the round's capsule
+            path = capsule.write_capsule(
+                rec, path=str(cdir / f"last-{seam}.capsule.npz"),
+                why="forced")
+            check(path is not None, f"capsule: {seam} was not written")
+            written[seam] = [Path(path)]
+            explicit[seam] = path
+    reached = sorted(spy.counts)
+    want = [s for s in CAPSULE_SEAMS if s != "service.solve"]
+    check(set(reached) == set(want),
+          f"capsule: the runs reached {reached}, not every seam of {want}")
+    per_seam = {}
+    paths = {}
+    cuda_kernels.reset_launches()
+    for seam in reached:
+        path = written[seam][-1]
+        paths[seam] = path
+        per_seam[seam] = dict(replay_both(path), captures=spy.counts[seam],
+                              capsules=len(written[seam]),
+                              from_recorder=seam not in explicit)
+    launches += take()
+    # the headline capsule's A/B table and the CLI as a program
+    head = written["solver.invoke"][0]
+    cap = capsule.load(str(head))
+    check(cap.meta.get("round") == "capsule-headline",
+          f"capsule: the first solver.invoke capsule is {cap.meta}")
+    rows = capsule.ab_compare(cap, device="cuda")
+    print(render_ab(rows), flush=True)
+    by_rung = {r["rung"]: r for r in rows}
+    for rung in ("device", "native", "host"):
+        check(by_rung[rung].get("eligible", True),
+              f"capsule: the {rung} rung is ineligible: {by_rung[rung]}")
+    check(by_rung["device"]["parity"] == "exact", f"capsule A/B {rows}")
+    per_seam["solver.invoke"]["headline"] = replay_both(head)
+    cli = {}
+    for label, path, extra in (("card", head, ["--ab"]),
+                               ("cpu", paths["interruption.dispatch"],
+                                ["--device", "cpu"])):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "karpenter_tpu_torch.obs", "replay",
+             str(path), "--json", *extra],
+            capture_output=True, text=True, timeout=300,
+            cwd=str(Path(__file__).resolve().parent))
+        check(proc.returncode == 0,
+              f"capsule CLI ({label}) rc {proc.returncode}: "
+              f"{proc.stderr[-2000:]}")
+        reply = json.loads(proc.stdout.strip().splitlines()[-1])
+        check(reply["replay"]["parity"] == "exact", f"capsule CLI {reply}")
+        cli[label] = dict(rc=proc.returncode, seconds=time.perf_counter() - t0,
+                          rung=reply["replay"]["rung"],
+                          ab=[(r["rung"], r.get("parity"))
+                              for r in reply.get("ab", [])])
+    line = {"capsule": {
+        "seams": per_seam, "explicit": sorted(explicit), "runs": runs,
+        "ab_headline": [{k: r.get(k) for k in ("rung", "eligible", "parity",
+                                               "nodes", "ms", "why")}
+                        for r in rows],
+        "cli": cli, "index": len(capsule.index()),
+        "compat_launches": launches}}
+    # the row seams' compat products at their own shapes (the headline
+    # capsule's are the main path's)
+    cases = [case for seam in reached if seam != "solver.invoke"
+             for case in capsule_cases(f"capsule {seam}",
+                                       capsule.load(str(paths[seam])),
+                                       kernels)]
+    return line, {"compat": launches}, cases
+
+
+def coalesce_burst(server, n: int) -> dict:
+    """``n`` tenants' first-round snapshots (``workload.
+    multitenant_workload``), tensorized here first, then sent as
+    stateless Solve requests from ``n`` threads released together, so
+    they reach the server inside one coalescing window: the fold's
+    batch sizes from the server's ``/metrics``."""
+    import threading
+    import urllib.request
+
+    import grpc
+
+    from karpenter_tpu_torch.api.nodepool import NodePool
+    from karpenter_tpu_torch.api.objects import ObjectMeta
+    from karpenter_tpu_torch.cloudprovider.catalog import benchmark_catalog
+    from karpenter_tpu_torch.models import ClaimTemplate, TorchSolver
+    from karpenter_tpu_torch.service import solver_service as svc
+    from karpenter_tpu_torch.workload import multitenant_workload
+
+    target, metrics_port = server
+    pool = NodePool(metadata=ObjectMeta(name="default"))
+    its = {pool.name: benchmark_catalog(40)}
+    fams: dict = {}
+    with CaptureSpy() as spy:
+        for i in range(n):
+            TorchSolver(device="cpu").solve(
+                multitenant_workload(i, 0, TENANT_PODS), [ClaimTemplate(pool)],
+                its)
+            rec = spy.last["solver.invoke"]
+            meta = {k: int(rec["meta"][k])
+                    for k in ("max_bins", "level_bits", "max_minv")}
+            fam = tuple(sorted((k, v.shape) for k, v in rec["inputs"].items()))
+            fams.setdefault((fam, meta["max_bins"]), []).append(
+                svc._pack(rec["inputs"], meta))
+    payloads = max(fams.values(), key=len)
+    check(len(payloads) >= 2, f"coalesce burst: no two tenants share a "
+                              f"shape family ({len(fams)} families)")
+
+    def coalesced() -> float:
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{metrics_port}/metrics", timeout=10) as r:
+            text = r.read().decode()
+        return sum(float(line.rsplit(" ", 1)[1]) for line in text.splitlines()
+                   if line.startswith(
+                       "karpenter_solver_coalesced_requests_total"))
+
+    before = coalesced()
+    chan = grpc.insecure_channel(target, options=svc._GRPC_OPTS)
+    call = chan.unary_unary(svc._METHOD, request_serializer=None,
+                            response_deserializer=None)
+    gate = threading.Barrier(len(payloads))
+    outs: dict = {}
+
+    def fire(i):
+        gate.wait()
+        outs[i] = svc._unpack(call(payloads[i], timeout=120))[0]
+
+    threads = [threading.Thread(target=fire, args=(i,))
+               for i in range(len(payloads))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    chan.close()
+    check(len(outs) == len(payloads), "coalesce burst: a request failed")
+    return {"requests": len(payloads), "families": len(fams),
+            "coalesced": coalesced() - before, "wall_ms": wall_ms}
+
+
+def batched_vs_single(rows: list, kernels) -> dict:
+    """One batched dispatch of ``rows`` (same-shape numpy snapshots, from
+    the service's capsules) against the same rows as single dispatches on
+    the card: compat launches, device time, kernels and wall of each, and
+    the outputs equal."""
+    import torch
+
+    from karpenter_tpu_torch.models.solver import (
+        TorchSolver,
+        batched_invoke,
+        packed_solve,
+    )
+    from karpenter_tpu_torch.ops import cuda_kernels
+
+    dev = torch.device("cuda")
+    args = [c.args() for c in rows]
+    mb = int(rows[0].static("max_bins"))
+    lb = int(rows[0].static("level_bits", 20))
+    mv = int(rows[0].static("max_minv", 0))
+
+    def batched():
+        return batched_invoke(args, mb, level_bits=lb, max_minv=mv)
+
+    def singles():
+        return [TorchSolver._unpack(packed_solve(
+            kernels.from_kernel_args(a, dev), mb, lb, mv,
+            fma_rem=False).cpu().numpy(), a, mb) for a in args]
+
+    out = {"n": len(args), "Gp": int(args[0]["g_mask"].shape[0]),
+           "Tp": int(args[0]["t_mask"].shape[0]), "Bp": mb}
+    results = {}
+    for name, fn in (("batched", batched), ("single", singles)):
+        fn()
+        torch.cuda.synchronize()
+        cuda_kernels.reset_launches()
+        t0 = time.perf_counter()
+        results[name] = fn()
+        out[f"{name}_wall_ms"] = (time.perf_counter() - t0) * 1e3
+        out[f"{name}_compat_launches"] = cuda_kernels.LAUNCHES["compat"]
+        out[f"{name}_trace"] = device_times(fn, 3, warm_up=False)
+    for a, b in zip(results["batched"], results["single"]):
+        for k in ("assign", "assign_e", "used", "tmpl", "F"):
+            check(np.array_equal(a[k], b[k]),
+                  f"batched row differs from its single dispatch in {k}")
+    return out
+
+
+def service_phase(kernels, workdir: Path) -> tuple:
+    """The solver service on the card: ``python -m karpenter_tpu_torch.
+    service.solver_service`` as its own process (coalescing window 4 ms,
+    ``KARPENTER_CAPSULE=1``), the headline through ``RemoteSolver`` equal
+    to the in-process ``TorchSolver`` solve bit for bit (``KARPENTER_RELAX
+    =0`` on both: the client is a CPU process, whose bin-axis plan runs
+    no LP floor), then the multi-tenant fleet (``workload.
+    run_multitenant``) with every tenant's claims equal to its solo
+    in-process oracle on the card, full uploads = tenants, no resync, no
+    remote fallback, and at least one coalesced batched dispatch on the
+    card whose rows replay exactly on the CPU plain path (from the
+    server's capsules). The server and the oracles run with routing off
+    (``pinned``), as phases 3-10 do: the gates would send the tenants'
+    40-pod solves to the native engine, in process and in the server's
+    fold alike. Returns ``(line, launches, cases)``: the server's compat
+    launches, read from its log, and a batched row's compat products."""
+    import re
+
+    import grpc
+    import torch
+
+    from karpenter_tpu_torch.models import TorchSolver
+    from karpenter_tpu_torch.obs import capsule
+    from karpenter_tpu_torch.service import RemoteSolver
+    from karpenter_tpu_torch.workload import (
+        build_workload,
+        run_multitenant,
+        solver_server,
+    )
+
+    sdir = workdir / "service"
+    sdir.mkdir()
+    log = workdir / "solver_service.log"
+    line: dict = {"grpc": grpc.__version__, "transport": "grpc loopback"}
+    t0 = time.perf_counter()
+    with pinned(), solver_server(env={"KARPENTER_CAPSULE": "1",
+                                      "KARPENTER_TRACE_DIR": str(sdir),
+                                      "KARPENTER_COALESCE_WINDOW_MS": "4"},
+                                 log=str(log)) as server:
+        line["server_start_s"] = time.perf_counter() - t0
+        # ---- the headline through the wire ----
+        with env_knobs(KARPENTER_RELAX="0"), CaptureSpy() as spy:
+            pods, templates, its = build_workload(N_PODS, N_TYPES)
+            t1 = time.perf_counter()
+            local = TorchSolver().solve(pods, templates, its)
+            torch.cuda.synchronize()
+            local_ms = (time.perf_counter() - t1) * 1e3
+            want = spy.last["solver.invoke"]
+            pods, templates, its = build_workload(N_PODS, N_TYPES)
+            remote_solver = RemoteSolver(server[0])
+            t1 = time.perf_counter()
+            remote = remote_solver.solve(pods, templates, its)
+            remote_ms = (time.perf_counter() - t1) * 1e3
+            got = spy.last["solver.invoke"]
+        check(remote_solver.last_device_stats["engine"] == "remote"
+              and remote_solver._route == ("service", "ok"),
+              f"the headline did not cross the wire: {remote_solver._route}")
+        check(got["meta"]["engine"] == "remote", "service: client capture")
+        for side in ("inputs", "outputs"):
+            w, g = want[side], got[side]
+            check(set(w) == set(g) and all(
+                np.asarray(w[k]).dtype == np.asarray(g[k]).dtype
+                and np.array_equal(w[k], g[k]) for k in w),
+                f"service: the headline's {side} differ through the wire")
+        check(local.node_count() == remote.node_count() == 1128,
+              f"service headline nodes: in process {local.node_count()}, "
+              f"through the wire {remote.node_count()}")
+        check(remote.scheduled_pod_count() == N_PODS, "service headline pods")
+        line["headline"] = dict(nodes=remote.node_count(),
+                                in_process_ms=local_ms, remote_ms=remote_ms,
+                                bit_equal=True)
+        # ---- the multi-tenant fleet ----
+        t1 = time.perf_counter()
+        row = run_multitenant(TENANTS, TENANT_ROUNDS, TENANT_PODS,
+                              server=server, oracle_device="cuda")
+        line["multitenant_s"] = time.perf_counter() - t1
+        # ---- a burst released together, which the window must fold ----
+        line["burst"] = coalesce_burst(server, TENANTS)
+        check(line["burst"]["coalesced"] >= 2,
+              f"the burst was not coalesced: {line['burst']}")
+    check("error" not in row, f"multi-tenant fleet: {row}")
+    check(row["isolation_ok"], f"a tenant's claims differ from its solo "
+                               f"oracle: {row}")
+    check(row["deltas"]["full_uploads"] == TENANTS
+          and row["deltas"]["resyncs"] == 0,
+          f"multi-tenant deltas: {row['deltas']}")
+    check(row["client_fallbacks"] == 0 and not row["degraded"],
+          f"multi-tenant fallbacks: {row['client_fallbacks']}")
+    check(row["billing_sums_ok"], "multi-tenant billing")
+    launched = re.findall(r"kernel launches (\{.*\})", log.read_text())
+    check(launched, f"the server printed no launch counts: "
+                    f"{log.read_text()[-2000:]}")
+    launches = json.loads(launched[-1])
+    # the server's capsules: the headline's, and the coalesced rows
+    caps = [capsule.load(str(p)) for p in sorted(sdir.glob("*.capsule.npz"))]
+    check(all(c.seam == "service.solve" for c in caps),
+          "service: a server capsule of another seam")
+    batched = [c for c in caps if c.static("batched", False)]
+    check(batched, f"no coalesced batched dispatch on the card "
+                   f"({len(caps)} server capsules, coalesce {row['coalesce']})")
+    on_card = [c for c in caps if c.engine == "device"]
+    expect = sum(2 + int(c.args()["g_mask"].shape[0]) for c in on_card)
+    check(launches.get("compat", 0) >= expect > 0,
+          f"service: the server launched compat {launches} times, its "
+          f"card dispatches need {expect}")
+    replays = {"batched": 0, "card_ms": 0.0, "cpu_ms": 0.0}
+    for c in batched:
+        r = replay_both(Path(c.path))
+        replays["batched"] += 1
+        replays["card_ms"] += r["card_ms"]
+        replays["cpu_ms"] += r["cpu_ms"]
+    head = max(caps, key=lambda c: int(c.static("max_bins")))
+    line["headline"]["capsule"] = replay_both(Path(head.path))
+    # one batched dispatch against its rows as single dispatches
+    fam: dict = {}
+    for c in batched:
+        key = tuple(sorted((k, v.shape) for k, v in c.args().items()))
+        fam.setdefault((key, c.static("max_bins")), []).append(c)
+    rows = max(fam.values(), key=len)[:TENANTS]
+    line["batched_vs_single"] = (batched_vs_single(rows, kernels)
+                                 if len(rows) >= 2 else None)
+    line.update(
+        server_launches=launches, server_capsules=len(caps),
+        device_capsules=len(on_card), batched_capsules=len(batched),
+        batched_replays=replays,
+        multitenant={k: row[k] for k in (
+            "config", "tenants", "rounds", "total_ms", "single_p99_ms",
+            "worst_p99_ms", "p99_ratio", "per_tenant", "coalesce",
+            "session_cache", "deltas", "deltas_only_steady_state",
+            "isolation_ok", "billing_sums_ok", "client_fallbacks",
+            "degraded")})
+    return ({"service": line}, {"compat": launches.get("compat", 0)},
+            capsule_cases("service", rows[0], kernels))
+
+
 def main() -> int:
     import torch
 
@@ -2933,6 +3521,17 @@ def main() -> int:
     obs_line = obs_phase(card, trace_dir, obs_head)
     obs_line["obs"]["phase_s"] = time.perf_counter() - t0
 
+    # ---- the ninth main path: replay capsules and the solver service ----
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        cap_line, cap_launches, cap_cases = capsule_phase(
+            cuda_kernels, kernels, Path(workdir))
+        cap_line["capsule"]["phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        svc_line, svc_launches, svc_cases = service_phase(kernels,
+                                                          Path(workdir))
+        svc_line["service"]["phase_s"] = time.perf_counter() - t0
+
     # ---- every kernel against its plain version, on the card ----
     _, K, W = args_gpu["g_mask"].shape
     gt_in = [args_gpu[k] for k in ("g_mask", "g_has", "g_tol",
@@ -2942,6 +3541,7 @@ def main() -> int:
     timed = [("main GxT", gt_in), ("main GxM", gm_in),
              ("main 1xB", bins_case(args_gpu, snap.G, Bp, kernels)),
              *live_cases, *cons_cases, *op_cases, *adm_cases, *spot_cases,
+             *cap_cases, *svc_cases,
              ("scale " + "x".join(map(str, SCALE_SHAPE)),
               compat_case(rng, *SCALE_SHAPE, dev))]
     cases = timed + [("x".join(map(str, shape)), compat_case(rng, *shape, dev))
@@ -2976,7 +3576,8 @@ def main() -> int:
         "launches": (launches["compat"] + live_launches["compat"]
                      + cons_launches["compat"] + op_launches["compat"]
                      + adm_launches["compat"] + spot_launches["compat"]
-                     + eng_launches["compat"] + obs_head["compat_launches"]),
+                     + eng_launches["compat"] + obs_head["compat_launches"]
+                     + cap_launches["compat"] + svc_launches["compat"]),
         "launches_by_path": {"headline": launches["compat"],
                              "live_round": live_launches["compat"],
                              "consolidation": cons_launches["compat"],
@@ -2984,7 +3585,9 @@ def main() -> int:
                              "admission": adm_launches["compat"],
                              "spot": spot_launches["compat"],
                              "engines": eng_launches["compat"],
-                             "obs": obs_head["compat_launches"]},
+                             "obs": obs_head["compat_launches"],
+                             "capsule": cap_launches["compat"],
+                             "service": svc_launches["compat"]},
         "max_abs_err": 0 if mismatches == 0 else 1,
         "tolerance": "exact (one bool per cell)",
         "mismatches": mismatches,
@@ -3031,8 +3634,10 @@ def main() -> int:
     print(json.dumps(adm_line))
     print(json.dumps(spot_line))
     print(json.dumps(eng_line))
-    obs_line["obs"]["script_s"] = time.perf_counter() - t_script
     print(json.dumps(obs_line))
+    print(json.dumps(cap_line))
+    svc_line["service"]["script_s"] = time.perf_counter() - t_script
+    print(json.dumps(svc_line))
     trace_tmp.cleanup()
     print(card)
     print(json.dumps({"ok": True, "device": {

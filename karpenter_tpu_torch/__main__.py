@@ -22,8 +22,12 @@ the engine ladder of ``models/solver.py``; without a card it raises.
 ``--device cpu`` (the counterpart of the JAX package's
 ``JAX_PLATFORMS=cpu``) runs ``TorchSolver(device="cpu")``, whose batches
 take the native engine (a CPU is not an accelerator) or the plain PyTorch
-path. Not in the port yet (ROADMAP.md Queue 1 item 2): ``--solver`` /
-``KARPENTER_SOLVER_TARGET`` (the solver service), which are refused.
+path. ``--solver HOST:PORT`` (or ``KARPENTER_SOLVER_TARGET``) binds a
+``RemoteSolver``: the solves cross to a solver service
+(``python -m karpenter_tpu_torch.service.solver_service``, or the JAX
+package's), ``KARPENTER_SOLVER_TENANT`` opts into its session protocol,
+and ``--device`` then names the client's own device (the LP floor and the
+in-process rescue).
 """
 
 from __future__ import annotations
@@ -151,17 +155,14 @@ def main(argv=None) -> int:
                     help="serve /metrics + /healthz on KARPENTER_METRICS_PORT")
     ap.add_argument("--max-ticks", type=int, default=0,
                     help="exit after N ticks (0 = run until signal)")
-    ap.add_argument("--device", default="cuda",
+    ap.add_argument("--device", default=None,
                     help="the solver's device: cuda (the default; raises "
-                         "without a card) or cpu (the plain path)")
+                         "without a card) or cpu (the plain path); with "
+                         "--solver, the client's own device (default cpu)")
     ap.add_argument("--solver", default=None,
-                    help="a solver service address: not in the port yet, "
-                         "refused")
+                    help="host:port of a solver service (the two-plane "
+                         "split); also KARPENTER_SOLVER_TARGET")
     args = ap.parse_args(argv)
-    if args.solver or env_str("KARPENTER_SOLVER_TARGET"):
-        ap.error("--solver / KARPENTER_SOLVER_TARGET: the solver service is "
-                 "not in the port yet; run without it")
-
     from karpenter_tpu_torch.models.solver import TorchSolver, make_solver
     from karpenter_tpu_torch.operator import Environment
     from karpenter_tpu_torch.operator.logging import make_logger
@@ -169,8 +170,19 @@ def main(argv=None) -> int:
     from karpenter_tpu_torch.utils.clock import Clock
 
     options = Options.from_env()
-    solver = (make_solver() if args.device == "cuda"
-              else TorchSolver(device=args.device))
+    target = args.solver or env_str("KARPENTER_SOLVER_TARGET")
+    if target:
+        from karpenter_tpu_torch.service import RemoteSolver
+
+        # KARPENTER_SOLVER_TENANT opts this operator into the fleet
+        # service's streaming delta protocol (session mode): one full
+        # snapshot, then per-round deltas + per-tenant SLO on the server
+        solver = RemoteSolver(
+            target, tenant=env_str("KARPENTER_SOLVER_TENANT") or None,
+            device=args.device or "cpu")
+    else:
+        solver = (make_solver() if args.device in (None, "cuda")
+                  else TorchSolver(device=args.device))
     env = Environment(
         clock=Clock(),  # wall-clock: budgets/TTLs run in real time
         sync=False,  # production batching window (1s idle / 10s max)
@@ -179,6 +191,12 @@ def main(argv=None) -> int:
         solver=solver,
         log=make_logger(options.log_level),
     )
+    if target:
+        # fallback counter + warn must land on THIS environment's registry
+        # and logging plane (the ones /metrics and stderr actually serve)
+        solver.bind_observability(registry=env.registry, log=env.log)
+        print(f"karpenter-tpu-torch operator: solver plane at {target}",
+              file=sys.stderr)
 
     applied = sum(load_manifest(env, m) for m in args.manifest)
     print(f"karpenter-tpu-torch operator: {applied} manifest objects "

@@ -37,8 +37,7 @@ path): on the card each row's compat product is the CUDA kernel. The JAX
 package's "return None when ``import jax`` fails" is gone: an
 inexpressible scenario still returns None, and a device fault
 propagates. Each probe dispatch runs in a ``preempt.dispatch`` span
-(``device``). Left out: the replay capture on that seam (ROADMAP.md
-Queue 1 item 1).
+(``device``) and records the seam's replay capture (obs/capsule.py).
 """
 
 from __future__ import annotations
@@ -142,6 +141,24 @@ def victim_sets(preemptor, enodes, prio_of: dict, classes: dict,
     return out
 
 
+def _capture(shared_np, g_count_k, e_avail, e_zero_cols, e_free, placed_g,
+             used, max_minv, Gp, Ep):
+    """The ``preempt.dispatch`` replay capture (obs/capsule.py): the
+    numpy snapshot, the rows with their per-row releases as sidecars, and
+    the host outputs, in the JAX package's layout."""
+    from karpenter_tpu_torch.obs import capsule
+    from karpenter_tpu_torch.ops.consolidate import row_capture_inputs
+
+    if not capsule.capture_enabled():
+        return
+    capsule.record_capture(
+        "preempt.dispatch",
+        row_capture_inputs(shared_np, g_count_k, e_avail, e_zero_cols,
+                           e_free=e_free),
+        {"placed_g": placed_g, "used": used},
+        engine="device", max_minv=max_minv, Gp=Gp, Ep=Ep)
+
+
 def probe_feasible(preemptor, candidates: list, templates, its,
                    daemon_overhead=None, device=None) -> list | None:
     """One batched counterfactual dispatch over every candidate node:
@@ -178,9 +195,9 @@ def probe_feasible(preemptor, candidates: list, templates, its,
     Gp = _pow2(snap.G)
     Ep = _pow2(esnap.E)
     Tp = _pow2(snap.T)
-    shared = kernels.from_kernel_args(
-        kernel_args(snap, esnap, Gp=Gp, Tp=Tp, Ep=Ep, include_counts=False),
-        device)
+    shared_np = kernel_args(snap, esnap, Gp=Gp, Tp=Tp, Ep=Ep,
+                            include_counts=False)
+    shared = kernels.from_kernel_args(shared_np, device)
     R = len(snap.resources)
     rows = len(candidates)
     g_count_k = np.zeros((rows, Gp), dtype=np.int32)
@@ -198,6 +215,8 @@ def probe_feasible(preemptor, candidates: list, templates, its,
         placed_g, used = dispatch_counterfactual_rows(
             shared, Gp, Ep, esnap.e_avail, max_minv, g_count_k,
             e_zero_cols, e_free=e_free)
+    _capture(shared_np, g_count_k, esnap.e_avail, e_zero_cols, e_free,
+             placed_g, used, max_minv, Gp, Ep)
     return [bool(placed_g[i, 0] >= 1 and used[i] == 0)
             for i in range(rows)]
 
@@ -250,9 +269,9 @@ def probe_feasible_batch(preemptors: list, cand_lists: list, templates,
     Gp = _pow2(snap.G)
     Ep = _pow2(esnap.E)
     Tp = _pow2(snap.T)
-    shared = kernels.from_kernel_args(
-        kernel_args(snap, esnap, Gp=Gp, Tp=Tp, Ep=Ep, include_counts=False),
-        device)
+    shared_np = kernel_args(snap, esnap, Gp=Gp, Tp=Tp, Ep=Ep,
+                            include_counts=False)
+    shared = kernels.from_kernel_args(shared_np, device)
     R = len(snap.resources)
     rows = len(pairs)
     g_count_k = np.zeros((rows, Gp), dtype=np.int32)
@@ -272,6 +291,8 @@ def probe_feasible_batch(preemptors: list, cand_lists: list, templates,
         placed_g, used = dispatch_counterfactual_rows(
             shared, Gp, Ep, esnap.e_avail, max_minv, g_count_k,
             e_zero_cols, e_free=e_free)
+    _capture(shared_np, g_count_k, esnap.e_avail, e_zero_cols, e_free,
+             placed_g, used, max_minv, Gp, Ep)
     out = [[] for _ in cand_lists]
     for i, (j, _) in enumerate(pairs):
         g = gidx[preemptors[j].uid]

@@ -359,7 +359,8 @@ class InterruptionDrain(Method):
             row = (bundle.base + need)[None, :]
             with obs.span("interruption.probe", candidates=len(cands)):
                 placed_g, used = bundle.dispatch(
-                    row, [np.asarray(cols, dtype=np.intp)])
+                    row, [np.asarray(cols, dtype=np.intp)],
+                    seam="interruption.dispatch")
             G = bundle.snap.G
             return bool((placed_g[0, :G] >= need).all()
                         and int(used[0]) == 0)

@@ -54,14 +54,27 @@ counter, the solve-quality account and the ``decode.recheck`` decision.
 ``last_device_stats`` carries the solve's ``cold_compiles`` and
 ``pad_waste_ratio`` deltas.
 
-Not in this slice (see ROADMAP.md): the mesh, the speculative doubled
-dispatch (``_invoke_spec``, and so its ``solve.dispatch_spec`` span) and
-replay capsules.
+Every dispatch records a replay capture (``obs/capsule.py``, seam
+``solver.invoke``): the numpy kernel arguments, the host outputs, the
+engine and route, and the static parameters, with the JAX package's
+field names (``pallas`` is always False here). ``_dispatch`` is the one
+numpy-level dispatch both ``_run_and_decode`` and the solver service's
+server go through, so a served solve routes exactly as an in-process
+one; ``RemoteSolver`` (service/solver_service.py) overrides it to ship
+the numpy arguments instead. ``batched_invoke`` is the service's
+coalesced dispatch: N same-shape snapshots in one dispatch on the card.
+The engine and route of the last dispatch are thread-local, as in the
+JAX package: the service drives one shared solver from concurrent
+threads.
+
+Not in this slice (see ROADMAP.md): the mesh and the speculative doubled
+dispatch (``_invoke_spec``, and so its ``solve.dispatch_spec`` span).
 """
 
 from __future__ import annotations
 
 import logging
+import threading
 import time
 
 import numpy as np
@@ -70,7 +83,7 @@ import torch
 from karpenter_tpu_torch import native, obs
 from karpenter_tpu_torch.api import labels as wk
 from karpenter_tpu_torch.models.inflight import InFlightNodeClaim
-from karpenter_tpu_torch.obs import decisions, devplane
+from karpenter_tpu_torch.obs import capsule, decisions, devplane
 from karpenter_tpu_torch.models.scheduler import (
     NullTopology,
     Scheduler,
@@ -105,6 +118,13 @@ HOST_CUTOFF_PODS = 8
 DEVICE_MIN_WORK = 8192
 
 
+def capture_engine(engine: str) -> str:
+    """A dispatch's engine as a replay capture names it, in the JAX
+    package's words: ``native`` and ``remote`` as they are, the device
+    types (``cuda``, ``cpu``) as ``device``."""
+    return engine if engine in ("native", "remote") else "device"
+
+
 def _native_cutoff() -> int:
     """The routing master switch: 0 turns ALL engine routing off (the
     parity tests pin this to keep the device path under test)."""
@@ -125,6 +145,65 @@ def _accelerated(device: torch.device) -> bool:
 class Solver:
     def solve(self, pods, templates, instance_types, **kw) -> SchedulerResults:
         raise NotImplementedError
+
+
+def packed_solve(args: dict, max_bins: int, level_bits: int, max_minv: int,
+                 fma_rem: bool = True) -> torch.Tensor:
+    """``solve_step`` on a snapshot's tensors with every output flattened
+    into ONE int32 tensor on their device (assign, assign_e, used, tmpl,
+    F — the layout ``TorchSolver._unpack`` splits), so the caller reads
+    one buffer back. ``fma_rem`` is ``solve_step``'s."""
+    out = kernels.solve_step(args, max_bins=max_bins, level_bits=level_bits,
+                             max_minv=max_minv, fma_rem=fma_rem)
+    return torch.cat([
+        out["assign"].ravel(),
+        out["assign_e"].ravel(),
+        out["used"].to(torch.int32),
+        out["tmpl"],
+        out["F"].to(torch.int32).ravel(),
+    ])
+
+
+def batched_invoke(args_list, max_bins: int, level_bits: int = 20,
+                   max_minv: int = 0, device=None) -> list:
+    """Run N same-shape solve snapshots (numpy kernel arguments) as one
+    dispatch on ``device`` (CUDA when None; it raises without a card) —
+    the solver service's coalesced dispatch, the port of the JAX
+    package's ``batched_invoke`` (``jit(vmap(packed))``). The batch is
+    stacked and padded to a power of two ``Np`` by repeating the last
+    snapshot, uploaded once, and every row's ``solve_step`` is queued on
+    one stream with no host read in between; the rows' flat outputs are
+    read back as ONE int32 buffer, unpacked per row, and the pad rows
+    dropped. Each row runs the batched program's multiply-add rule
+    (``fma_rem=False``, ``ops/kernels.py``). Returns one host output dict
+    per input, each laid out as ``TorchSolver._invoke``'s. The pow-2
+    batch-axis waste and the dispatch land in the device plane under the
+    JAX package's ``service.batch`` site and key."""
+    device = kernels.resolve_device(device, "the batched solve")
+    n = len(args_list)
+    Np = 1 << max(n - 1, 0).bit_length() if n > 1 else 1
+    base = args_list[0]
+    stacked = {
+        k: np.stack([np.asarray(a[k]) for a in args_list]
+                    + [np.asarray(args_list[-1][k])] * (Np - n))
+        for k in base
+    }
+    devplane.record_padding("service.batch", n, Np)
+    t0 = time.perf_counter()
+    with obs.span("solve.kernel", kind="device", batch=n):
+        dev = kernels.from_kernel_args(stacked, device)
+        flat = torch.stack([
+            packed_solve({k: v[i] for k, v in dev.items()}, max_bins,
+                         level_bits, max_minv, fma_rem=False)
+            for i in range(Np)
+        ]).cpu().numpy()  # the one device->host read
+    devplane.record_dispatch(
+        "service.batch",
+        (Np, max_bins, level_bits, max_minv,
+         tuple(sorted((k, v.shape[1:]) for k, v in stacked.items()))),
+        time.perf_counter() - t0)
+    return [TorchSolver._unpack(flat[i], args_list[i], max_bins)
+            for i in range(n)]
 
 
 class HostSolver(Solver):
@@ -172,9 +251,31 @@ class TorchSolver(Solver):
         self.device = torch.device("cuda" if device is None else device)
         self.host = HostSolver()
         self.last_device_stats: dict = {}
-        # (rung, reason) of the most recent dispatch, recorded as the
-        # solve's ONE "solver.route" verdict (obs/decisions.py)
-        self._route = None
+        # the engine and route of the most recent dispatch are
+        # THREAD-LOCAL: the solver service drives one shared solver from
+        # concurrent worker threads, and a tenant's replay capture stamped
+        # with another tenant's engine would replay on the wrong rung
+        self._eng_tls = threading.local()
+
+    @property
+    def _engine(self) -> str:
+        """The engine of this thread's last dispatch: the device type,
+        ``native`` or ``remote``."""
+        return getattr(self._eng_tls, "engine", self.device.type)
+
+    @_engine.setter
+    def _engine(self, value: str):
+        self._eng_tls.engine = value
+
+    @property
+    def _route(self):
+        """(rung, reason) of this thread's last dispatch, recorded as the
+        solve's ONE "solver.route" verdict (obs/decisions.py)."""
+        return getattr(self._eng_tls, "route", None)
+
+    @_route.setter
+    def _route(self, value):
+        self._eng_tls.route = value
 
     def solve(self, pods, templates, instance_types, topology=None,
               existing_nodes=(), daemon_overhead=None, limits=None,
@@ -429,15 +530,16 @@ class TorchSolver(Solver):
         (exact, just slower) rather than spill to the host loop. Gates on
         the kernel's own bin usage, not post-validation claim count. Each
         dispatch, the re-run included, goes through the engine gates on
-        the numpy arguments; the device copy is made at the first
-        dispatch that takes the device."""
+        the numpy arguments (``_dispatch``); the device copy is made at
+        the first dispatch that takes the device. Each dispatch records
+        its ``solver.invoke`` replay capture."""
         G, T = snap.G, snap.T
         p = self.plan(snap, max_bins, esnap)
         B, Bp, E = p["B"], p["Bp"], p["E"]
         stages["lp_led"] = p["lp_led"]
         stages["floor"] = p["floor"]
         args_np = kernel_args(snap, esnap, Gp=p["Gp"], Tp=p["Tp"], Ep=p["Ep"])
-        args = None
+        upload: dict = {}
         compat_cache: dict = {}
         bin_cap = min(p["total_pods"], 4096)
         # the compile ledger's key, as the JAX package builds it: the
@@ -455,21 +557,22 @@ class TorchSolver(Solver):
             devplane.record_padding("solve.bins", G * T * B,
                                     p["Gp"] * p["Tp"] * Bp)
             with obs.span("solve.kernel", kind="device", bins=Bp):
-                host = None
-                reason = self._native_reason(args_np)
-                if reason is not None:
-                    host = self._invoke_native(args_np, Bp, reason)
-                if host is None:
-                    if args is None:
-                        args = kernels.from_kernel_args(args_np, self.device)
-                    # engine and (rung, reason) of this dispatch
-                    self._engine = self.device.type
-                    self._route = ("device", "ok")
-                    host = self._invoke(
-                        args, Bp, p["level_bits"], p["max_minv"],
-                        key=base_key + (Bp, p["level_bits"], p["max_minv"]))
+                host = self._dispatch(
+                    args_np, base_key + (Bp, p["level_bits"], p["max_minv"]),
+                    Bp, upload)
             stages["solve_ms"] = stages.get("solve_ms", 0.0) + (
                 time.perf_counter() - t0) * 1000.0
+            # replay capsule (obs/capsule.py): this dispatch's exact
+            # numpy inputs and host outputs by REFERENCE onto the open
+            # round trace (a doubled re-run overwrites — last wins)
+            capsule.record_capture(
+                "solver.invoke", args_np, host,
+                engine=capture_engine(self._engine),
+                rung=self._route[0] if self._route else None,
+                reason=self._route[1] if self._route else None,
+                max_bins=Bp, level_bits=p["level_bits"],
+                max_minv=p["max_minv"], family=f"{p['Gp']}x{p['Tp']}",
+                pallas=False)
             used = host["used"]
             grow = max_bins is None and bool(used[:B].all()) and B < bin_cap
             assign_e = host["assign_e"][:G, :E] if esnap is not None else None
@@ -500,6 +603,30 @@ class TorchSolver(Solver):
                 self._route = ("relax", "ok")
             stages.update(bins=Bp, B=B, Gp=p["Gp"], Ep=p["Ep"])
             return claims, retry, ecommits
+
+    def _dispatch(self, args_np, key, max_bins, upload=None):
+        """One dispatch of a snapshot's numpy kernel arguments, routed by
+        the engine gates (``_native_reason``): the native engine, or the
+        device — uploaded with ``from_kernel_args`` (once per ``upload``
+        dict, which a solve's doubled re-runs share) and run by
+        ``_invoke``. ``key`` is the compile ledger's; its last two
+        entries are ``level_bits`` and ``max_minv``. Returns the host
+        output dict and leaves this thread's ``_engine``/``_route`` set.
+        The solver service's server calls this on the arguments a client
+        shipped."""
+        reason = self._native_reason(args_np)
+        if reason is not None:
+            host = self._invoke_native(args_np, max_bins, reason)
+            if host is not None:
+                return host
+        if upload is None:
+            upload = {}
+        if "args" not in upload:
+            upload["args"] = kernels.from_kernel_args(args_np, self.device)
+        self._engine = self.device.type
+        self._route = ("device", "ok")
+        return self._invoke(upload["args"], max_bins, key[-2], key[-1],
+                            key=key)
 
     def _native_reason(self, args_np) -> str | None:
         """The gate of one dispatch, decided on the numpy arguments: the
@@ -549,16 +676,7 @@ class TorchSolver(Solver):
         host waits for the card; ``key`` is the compile ledger's."""
         t0 = time.perf_counter()
         with obs.span("solve.dispatch", kind="device"):
-            out = kernels.solve_step(args, max_bins=max_bins,
-                                     level_bits=level_bits,
-                                     max_minv=max_minv)
-            flat = torch.cat([
-                out["assign"].ravel(),
-                out["assign_e"].ravel(),
-                out["used"].to(torch.int32),
-                out["tmpl"],
-                out["F"].to(torch.int32).ravel(),
-            ])
+            flat = packed_solve(args, max_bins, level_bits, max_minv)
         # a first-sight key's seconds are its launch: CUDA's first use and
         # the compat build, where the JAX package pays its XLA compile
         devplane.record_dispatch("solve.kernel", key,

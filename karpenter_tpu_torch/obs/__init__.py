@@ -1,7 +1,6 @@
 """obs: the reconcile flight recorder (span tracing + anomaly dumps).
 
-The port's copy of ``karpenter_tpu/obs`` (imports changed), less the
-replay plane (``obs/capsule.py``, ROADMAP.md Queue 1 item 1):
+The port's copy of ``karpenter_tpu/obs`` (imports changed):
 
 - ``round_trace(name, registry=...)`` opens one traced reconcile round;
   ``span(name, kind=...)`` nests timed regions under it (``kind`` in
@@ -21,12 +20,18 @@ replay plane (``obs/capsule.py``, ROADMAP.md Queue 1 item 1):
   lifecycle timeline with cause chains, realized cost and per-command
   savings reconciliation, per-tenant device-time billing (``/usage``)
   and the observed interruption rates.
+- :mod:`karpenter_tpu_torch.obs.capsule`: the replay plane — every
+  hot-path dispatch seam captures the dispatch's exact numpy inputs and
+  host outputs by reference; anomalous rounds serialize ONE
+  ``.capsule.npz`` next to their Chrome dump, in the JAX package's file
+  format, and ``python -m karpenter_tpu_torch.obs replay <capsule>
+  [--ab]`` re-executes it (and A/Bs every eligible rung).
 
 Every hook is host-side: none runs inside the pack loop
 (``ops/kernels.py``) or ``ops/cuda_kernels.py``.
 """
 
-from karpenter_tpu_torch.obs import decisions, devplane, timeline
+from karpenter_tpu_torch.obs import capsule, decisions, devplane, timeline
 from karpenter_tpu_torch.obs.recorder import FlightRecorder, chrome_events
 from karpenter_tpu_torch.obs.trace import (
     RECORDER,
@@ -46,6 +51,7 @@ from karpenter_tpu_torch.obs.trace import (
 
 __all__ = [
     "FlightRecorder",
+    "capsule",
     "chrome_events",
     "decisions",
     "devplane",

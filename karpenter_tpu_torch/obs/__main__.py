@@ -7,12 +7,18 @@ mixes, retained anomalous rounds; ``--timeline`` appends the fleet
 ledger) from a running metrics server (``--url``), a saved snapshot
 (``--file``), or THIS process's ledger.
 
-``replay`` is refused (exit code 2) until replay capsules are ported
-(ROADMAP.md Queue 1 item 1), as ``python -m karpenter_tpu_torch``
-refuses ``--solver``.
+``replay`` re-executes a captured hot-path dispatch (obs/capsule.py) —
+a capsule the port or the JAX package wrote — and grades it against the
+capsule's recorded outputs; ``--ab`` additionally races the same capsule
+across every eligible rung (device / native / host-FFD; the mesh rungs
+report ineligible) and prints a parity + nodes + wall-clock + decision
+table. The device rung runs on the card unless ``--device cpu``. Exit
+codes, the JAX package's: 0 parity exact, 1 parity mismatch or replay
+failure.
 
     python -m karpenter_tpu_torch.obs report --url http://127.0.0.1:8080
     python -m karpenter_tpu_torch.obs report --file introspect.json --timeline
+    python -m karpenter_tpu_torch.obs replay x.capsule.npz --ab --device cpu
 """
 
 from __future__ import annotations
@@ -21,7 +27,8 @@ import argparse
 import json
 import sys
 
-__all__ = ["render_report", "render_timeline", "main"]
+__all__ = ["render_report", "render_timeline", "render_ab", "run_replay",
+           "main"]
 
 
 def _fmt_mix(rungs: dict) -> str:
@@ -174,7 +181,8 @@ def render_report(snapshot: dict, timeline: bool = False) -> str:
     capsules = snapshot.get("capsules") or []
     if capsules:
         lines.append("")
-        lines.append("replay capsules")
+        lines.append("replay capsules (python -m karpenter_tpu_torch.obs "
+                     "replay)")
         for c in capsules:
             tenant = f" tenant={c['tenant']}" if c.get("tenant") else ""
             lines.append(
@@ -185,6 +193,74 @@ def render_report(snapshot: dict, timeline: bool = False) -> str:
         lines.append("")
         lines.append(render_timeline(snapshot.get("timeline") or {}))
     return "\n".join(lines)
+
+
+def render_ab(rows: list) -> str:
+    """The ``replay --ab`` table: one line per rung — parity vs the
+    captured outputs, nodes, wall clock, and whether the rung matches the
+    one the capture actually ran (the decision diff)."""
+    lines = [f"{'rung':12s} {'parity':8s} {'nodes':>7s} {'ms':>10s}  decision"]
+    for r in rows:
+        if not r.get("eligible", True):
+            lines.append(f"{r['rung']:12s} {'-':8s} {'-':>7s} {'-':>10s}  "
+                         f"ineligible: {r.get('why')}")
+            continue
+        decision = ("= captured rung" if r.get("rung_match")
+                    else f"captured rung was {r.get('captured_rung')}")
+        nodes = r.get("nodes")
+        lines.append(
+            f"{r['rung']:12s} {r.get('parity', '?'):8s} "
+            f"{nodes if nodes is not None else '-':>7} "
+            f"{r.get('ms', 0.0):>10.2f}  {decision}")
+    return "\n".join(lines)
+
+
+def run_replay(path: str, ab: bool = False, rung: str | None = None,
+               as_json: bool = False, device=None) -> int:
+    """The ``replay`` subcommand body (prints and returns the exit code,
+    so tests drive it in-process). ``device`` is the device rung's (the
+    card when None)."""
+    from karpenter_tpu_torch.obs import capsule as _capsule
+
+    try:
+        cap = _capsule.load(path)
+    except (OSError, ValueError) as e:
+        print(f"replay: {e}", file=sys.stderr)
+        return 1
+    out: dict = {
+        "capsule": path,
+        "seam": cap.seam,
+        "engine": cap.engine,
+        "round": cap.meta.get("round"),
+        "trace_id": cap.meta.get("trace_id"),
+        "anomalies": cap.meta.get("anomalies") or [],
+        "decisions": cap.meta.get("decisions") or [],
+    }
+    try:
+        out["replay"] = _capsule.replay(cap, rung=rung, device=device)
+    except Exception as e:
+        print(f"replay: {type(e).__name__}: {e}", file=sys.stderr)
+        out["replay"] = {"error": f"{type(e).__name__}: {e}"}
+        if as_json:
+            print(json.dumps(out))
+        return 1
+    if ab:
+        out["ab"] = _capsule.ab_compare(cap, device=device)
+    if as_json:
+        print(json.dumps(out))
+    else:
+        r = out["replay"]
+        print(f"capsule {path}")
+        print(f"  seam={cap.seam} engine={cap.engine} "
+              f"round={cap.meta.get('round')} "
+              f"anomalies={','.join(out['anomalies']) or '-'}")
+        print(f"  replay rung={r['rung']} parity={r['parity']} "
+              f"nodes={r['nodes']} (captured {r['captured_nodes']}) "
+              f"ms={r['ms']}")
+        if ab:
+            print()
+            print(render_ab(out["ab"]))
+    return 0 if out["replay"].get("parity") == "exact" else 1
 
 
 def main(argv=None) -> int:
@@ -205,15 +281,27 @@ def main(argv=None) -> int:
                           "events with cause chains, realized cost, "
                           "command reconciliation, interruption rates, "
                           "tenant billing — obs/timeline.py)")
-    sub.add_parser(
-        "replay", help="replay a capsule: not in the port yet, refused",
-        add_help=False).add_argument("rest", nargs=argparse.REMAINDER)
+    rpl = sub.add_parser(
+        "replay", help="re-execute a replay capsule offline (bit-parity "
+                       "graded against its captured outputs)")
+    rpl.add_argument("capsule", help="path to a .capsule.npz file")
+    rpl.add_argument("--ab", action="store_true",
+                     help="also run the capsule across every eligible rung "
+                          "and print the parity/nodes/wall-clock table")
+    rpl.add_argument("--rung", default=None,
+                     help="override the replay rung (device/native/host; "
+                          "xla means device; probe capsules: device/"
+                          "native; relax capsules: relax/ladder/host)")
+    rpl.add_argument("--device", default=None,
+                     help="the device rung's device: the card (cuda) by "
+                          "default, raising without one; cpu for the plain "
+                          "path")
+    rpl.add_argument("--json", action="store_true",
+                     help="emit the result as one JSON line")
     args = ap.parse_args(argv)
     if args.cmd == "replay":
-        print("replay: replay capsules are not in the port yet (ROADMAP.md "
-              "Queue 1 item 1); replay with python -m karpenter_tpu.obs",
-              file=sys.stderr)
-        return 2
+        return run_replay(args.capsule, ab=args.ab, rung=args.rung,
+                          as_json=args.json, device=args.device)
     if args.cmd != "report":
         ap.print_help()
         return 2

@@ -3,10 +3,8 @@
 The port's copy of ``karpenter_tpu/obs/decisions.py`` (imports changed).
 The port's engine rung is ``device`` where the JAX package's is ``xla``,
 in the same ladder position of ``solver.route``, so ``rung-regression``
-compares the same order. ``mesh.partition`` and ``session.sync`` keep
-their enums but have no producer until the mesh and the solver service
-are ported (ROADMAP.md Queue 1 items 2 and 3); ``introspect_snapshot``
-serves an empty ``capsules`` list until capsules are (item 1).
+compares the same order. ``mesh.partition`` keeps its enum but has no
+producer until the mesh is ported (ROADMAP.md Queue 1).
 
 The flight recorder (obs/trace.py) made *time* observable and the device
 plane (obs/devplane.py) made *compiles and padding* observable; this
@@ -646,8 +644,9 @@ def introspect_snapshot(k: int = 16) -> dict:
     """The ``/introspect`` endpoint body: per-site rung mixes, the last-K
     rounds' rung summaries, the quality account, per-tenant rung mixes,
     the flight recorder's retained anomalous rounds, the replay capsules
-    written by this process (none until capsules are ported), and the
-    fleet ledger's timeline section (obs/timeline.py)."""
+    written by this process (obs/capsule.py), and the fleet ledger's
+    timeline section (obs/timeline.py)."""
+    from karpenter_tpu_torch.obs import capsule as _capsule
     from karpenter_tpu_torch.obs import timeline as _timeline
     from karpenter_tpu_torch.obs import trace as _trace
 
@@ -668,7 +667,7 @@ def introspect_snapshot(k: int = 16) -> dict:
         "quality": DECISIONS.quality_summary(),
         "tenants": DECISIONS.tenant_mix(),
         "anomalies": anomalies[-k:],
-        "capsules": [],
+        "capsules": _capsule.index(k),
         "timeline": _timeline.timeline_snapshot(k),
     }
 

@@ -1,8 +1,6 @@
 """Per-round flight recorder: trace ring buffer + Chrome trace dumps.
 
 The port's copy of ``karpenter_tpu/obs/recorder.py`` (imports changed).
-The replay capsule an anomalous round writes beside its dump (below) is
-left out until capsules are ported (ROADMAP.md Queue 1 item 1).
 
 Keeps the last N completed round traces (:mod:`karpenter_tpu_torch.obs.trace`)
 in memory and writes a `Chrome trace-event
@@ -112,6 +110,13 @@ class FlightRecorder:
             self._ring.append(trace)
         if trace.anomalies or self.dump_all:
             self.dump(trace)
+        # replay capsule (obs/capsule.py): an anomalous round's pending
+        # solve capture serializes next to the Chrome dump written above
+        # (KARPENTER_CAPSULE=1 forces it for every recorded round); the
+        # writer never raises — a capsule failure must not fail the round
+        from karpenter_tpu_torch.obs import capsule as _capsule
+
+        _capsule.maybe_write_round(trace, self.dump_dir)
 
     def traces(self) -> list:
         """Retained traces, oldest first."""

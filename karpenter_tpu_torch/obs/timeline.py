@@ -1,9 +1,6 @@
 """Fleet ledger: causal node-lifecycle timeline + realized-cost accounting.
 
 The port's copy of ``karpenter_tpu/obs/timeline.py`` (imports changed).
-A round's capsule ref rides its events once capsules are ported
-(ROADMAP.md Queue 1 item 1); until then ``Trace.capsule_path`` stays
-None.
 
 The flight recorder (obs/trace.py) made *time* observable, the device
 plane (obs/devplane.py) *compiles and padding*, the decision ledger

@@ -1,8 +1,7 @@
 """In-process span tracer for the provision/disrupt hot paths.
 
-The port's copy of ``karpenter_tpu/obs/trace.py`` (imports changed; the
-replay-capsule reset is left out until capsules are ported, ROADMAP.md
-Queue 1 item 1). The text below is the JAX package's, with the port's
+The port's copy of ``karpenter_tpu/obs/trace.py`` (imports changed).
+The text below is the JAX package's, with the port's
 names: on the card a ``device`` span brackets the eager launch of the
 pack loop (``solve.dispatch``) and the one readback (``solve.block``).
 
@@ -548,9 +547,11 @@ def reset():
     RECORDER.configure(dump_dir=_env_dir(), capacity=_env_capacity(),
                        dump_all=_env_dump_all())
     RECORDER.clear()
+    from karpenter_tpu_torch.obs import capsule as _capsule
     from karpenter_tpu_torch.obs import decisions as _decisions
     from karpenter_tpu_torch.obs import timeline as _timeline
 
+    _capsule.reset()
     _decisions.reset()
     _timeline.reset()
     return TRACER, RECORDER

@@ -59,6 +59,11 @@ class Environment:
             self.cloud = MetricsCloudProvider(self.cloud, registry=self.registry)
         self.binder = Binder(self.store, clock=self.clock, registry=self.registry)
         self.cluster = Cluster(self.store, clock=self.clock)
+        # session-mode remote solvers ship the cluster's delta journal as
+        # the wire protocol's provenance window (service/solver_service.py
+        # RemoteSolver.bind_cluster); in-process solvers have no such hook
+        if solver is not None and hasattr(solver, "bind_cluster"):
+            solver.bind_cluster(self.cluster)
         # leader election gates every reconcile round (operator.go
         # LeaderElection): a single-instance environment always holds the
         # lease; a standby Environment sharing the store stays passive

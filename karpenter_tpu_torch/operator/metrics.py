@@ -315,8 +315,36 @@ SHARD_FALLBACKS = f"{NAMESPACE}_shard_fallbacks_total"
 SOLVER_REQUEST_SECONDS = f"{NAMESPACE}_solver_request_seconds"
 SOLVER_REQUEST_QUANTILE = f"{NAMESPACE}_solver_request_quantile_seconds"
 SLO_BUDGET_BURN = f"{NAMESPACE}_slo_error_budget_burn_total"
-# per-tenant request counters on the SLO plane (SloTracker(tenant=))
+# multi-tenant solver fleet service (service/session.py + solver_service.py):
+# per-tenant request counters on the SLO plane, session-cache efficacy with
+# an LRU byte budget, streaming-delta resync accounting, the coalescer's
+# batched-dispatch shape, admission rejections, transport retries, wire
+# payload sizes, and the cross-tenant-bleed assertion hook
 SOLVER_TENANT_REQUESTS = f"{NAMESPACE}_solver_tenant_requests_total"
+SOLVER_SESSIONS = f"{NAMESPACE}_solver_sessions_active"
+SOLVER_SESSION_CACHE_HITS = f"{NAMESPACE}_solver_session_cache_hits_total"
+SOLVER_SESSION_CACHE_STORES = f"{NAMESPACE}_solver_session_cache_stores_total"
+SOLVER_SESSION_CACHE_EVICTIONS = (
+    f"{NAMESPACE}_solver_session_cache_evictions_total"
+)
+SOLVER_SESSION_CACHE_BYTES = f"{NAMESPACE}_solver_session_cache_bytes"
+SOLVER_SESSION_RESYNCS = f"{NAMESPACE}_solver_session_resyncs_total"
+SOLVER_COALESCED = f"{NAMESPACE}_solver_coalesced_requests_total"
+SOLVER_COALESCE_BATCH = f"{NAMESPACE}_solver_coalesce_batch_size"
+# requests folded per dispatch window — powers of two like the probe's
+SOLVER_COALESCE_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
+SOLVER_ADMISSION_REJECTS = f"{NAMESPACE}_solver_admission_rejects_total"
+SOLVER_REMOTE_RETRIES = f"{NAMESPACE}_solver_remote_retries_total"
+SOLVER_REQUEST_BYTES = f"{NAMESPACE}_solver_request_bytes"
+# wire payload sizes: bytes, not seconds
+SOLVER_REQUEST_BYTES_BUCKETS = (
+    1e3, 1e4, 1e5, 1e6, 5e6, 1e7, 5e7, 1e8, 2.56e8,
+)
+SOLVER_BLEED_CHECKS = f"{NAMESPACE}_solver_bleed_checks_total"
+# session-GC sweeps on the solver fleet service (service/session.py
+# SessionRegistry.sweep): each sweep reaps expired sessions and releases
+# their bundle bytes from the LRU budget without a client access
+SOLVER_SESSION_SWEEPS = f"{NAMESPACE}_solver_session_sweeps_total"
 # decision plane (obs/decisions.py): one ladder verdict per
 # site invocation (labels site/rung/reason, reasons drawn from the closed
 # per-site enums so cardinality is bounded), the per-solve node-count

@@ -64,7 +64,11 @@ readback, so the span holds its device work) with the compile ledger's
 in the joint plan, and ``SnapshotCache``'s ``snapshot.advance``
 decisions with the ``snapshot-rebuild`` anomaly.
 
-Left out (a later slice, ROADMAP.md Queue 1 item 1): replay capture.
+Replay capture (obs/capsule.py): every ``DisruptionSnapshot.dispatch``
+records the numpy snapshot, the rows and the host outputs under its
+``seam`` (``probe.dispatch``, ``global.dispatch`` from
+``joint_retirement_plan``, ``interruption.dispatch`` from the drain), in
+the JAX package's layout (``row_capture_inputs``).
 """
 
 from __future__ import annotations
@@ -78,7 +82,7 @@ import numpy as np
 import torch
 
 from karpenter_tpu_torch import native, obs
-from karpenter_tpu_torch.obs import devplane
+from karpenter_tpu_torch.obs import capsule, devplane
 from karpenter_tpu_torch.ops import kernels
 from karpenter_tpu_torch.ops.tensorize import (
     ExistingSnapshot,
@@ -564,34 +568,62 @@ class DisruptionSnapshot:
             self._shared = kernels.from_kernel_args(shared_np, self.device)
         return self._shared, self._dims
 
-    def dispatch(self, g_count_k, e_zero_cols, max_bins=1):
+    def dispatch(self, g_count_k, e_zero_cols, seam="probe.dispatch",
+                 max_bins=1):
         """Run the row-batched pack over the counterfactual rows; returns
         (placed_g [rows, Gp], used [rows]) as int64 numpy. ``max_bins``
         caps the fresh claims a row may open (1 is the reference's m→1
         rule). ``e_zero_cols[i]`` holds the existing-node columns row i
         removes. A snapshot under the solver's work floor runs on the
         native engine (``_native_routable``), the rest on the bundle's
-        device."""
+        device. ``seam`` names the replay-capture seam the dispatch
+        records under: ``probe.dispatch`` for the per-candidate probes,
+        ``global.dispatch`` for the joint ladder, ``interruption.dispatch``
+        for the drain's absorb probe — one tensor layout, so each replays
+        through the same chunked code."""
         # per-generation invocation accounting: the short-circuit contract
         # (one probe dispatch per generation) is read off this log
         note_probe_dispatch(self.generation)
         rows = g_count_k.shape[0]
+        shared_np, (Gp, Ep) = self._shared_host()
         if self._native_routable():
-            shared, (Gp, Ep) = self._shared_host()
             try:
                 with obs.span("probe.dispatch", rows=rows, engine="native"):
-                    return dispatch_counterfactual_rows_native(
-                        shared, Gp, Ep, self.esnap.e_avail, self.max_minv,
+                    placed_g, used = dispatch_counterfactual_rows_native(
+                        shared_np, Gp, Ep, self.esnap.e_avail, self.max_minv,
                         g_count_k, e_zero_cols, max_bins=max_bins)
             except (RuntimeError, ValueError):
                 logging.getLogger(__name__).warning(
                     "native probe dispatch failed; using the device kernel",
                     exc_info=True)
-        shared, (Gp, Ep) = self._shared_args()
+            else:
+                self._capture(seam, shared_np, Gp, Ep, g_count_k,
+                              e_zero_cols, placed_g, used, "native",
+                              max_bins)
+                return placed_g, used
+        shared, _ = self._shared_args()
         with obs.span("probe.dispatch", rows=rows, engine="device"):
-            return dispatch_counterfactual_rows(
+            placed_g, used = dispatch_counterfactual_rows(
                 shared, Gp, Ep, self.esnap.e_avail, self.max_minv,
                 g_count_k, e_zero_cols, max_bins=max_bins)
+        self._capture(seam, shared_np, Gp, Ep, g_count_k, e_zero_cols,
+                      placed_g, used, "device", max_bins)
+        return placed_g, used
+
+    def _capture(self, seam, shared_np, Gp, Ep, g_count_k, e_zero_cols,
+                 placed_g, used, engine, max_bins):
+        """Replay capture of this dispatch (obs/capsule.py): the numpy
+        snapshot by reference plus the rows (``row_capture_inputs``) and
+        the host outputs, with the JAX package's static fields and the
+        rows' ``max_bins``."""
+        if not capsule.capture_enabled():
+            return
+        capsule.record_capture(
+            seam, row_capture_inputs(shared_np, g_count_k, self.esnap.e_avail,
+                                     e_zero_cols),
+            {"placed_g": placed_g, "used": used},
+            engine=engine, max_minv=self.max_minv, Gp=Gp, Ep=Ep,
+            max_bins=max_bins)
 
     def _native_routable(self) -> bool:
         """The solver's engine gates applied to the probe: the same
@@ -609,6 +641,38 @@ class DisruptionSnapshot:
         if self.snap.G * self.snap.T >= min_work:
             return False
         return native.available()
+
+
+def row_capture_inputs(shared_np, g_count_k, e_avail, e_zero_cols,
+                       e_free=None) -> dict:
+    """The replay-capture inputs of one counterfactual-row dispatch
+    (obs/capsule.py, the JAX package's layout): the shared numpy snapshot
+    plus the ``cf//`` sidecars — the rows' group counts, the master
+    ``e_avail``, the zeroed columns flattened (``e_zero_idx``, with
+    ``e_zero_len`` -1 for a None row) and, for the preemption probes, the
+    per-row releases (``e_free_col``, -1 for None, and ``e_free_delta``)."""
+    cf = capsule.CF_PREFIX
+    lens = np.array([-1 if c is None else len(c) for c in e_zero_cols],
+                    dtype=np.int64)
+    parts = [np.asarray(c, dtype=np.int64).ravel()
+             for c in e_zero_cols if c is not None and len(c)]
+    inputs = dict(shared_np)
+    inputs[cf + "g_count_rows"] = np.asarray(g_count_k)
+    inputs[cf + "e_avail"] = np.asarray(e_avail)
+    inputs[cf + "e_zero_idx"] = (np.concatenate(parts) if parts
+                                 else np.zeros(0, dtype=np.int64))
+    inputs[cf + "e_zero_len"] = lens
+    if e_free is not None:
+        R = np.asarray(e_avail).shape[1]
+        cols = np.full(len(e_free), -1, dtype=np.int64)
+        deltas = np.zeros((len(e_free), R), dtype=np.float32)
+        for i, fr in enumerate(e_free):
+            if fr is not None:
+                cols[i] = int(fr[0])
+                deltas[i] = np.asarray(fr[1], dtype=np.float32)
+        inputs[cf + "e_free_col"] = cols
+        inputs[cf + "e_free_delta"] = deltas
+    return inputs
 
 
 def chunk_rows(e_master, g_count_k, e_zero_cols, e_free, lo, hi, Gp):
@@ -1459,6 +1523,7 @@ def joint_retirement_plan(provisioner, cluster, store, candidates,
     t1 = time.perf_counter()
     with obs.span("global.dispatch", rows=rows_total, singles=singles):
         placed_g, used = bundle.dispatch(g_count_k, e_zero_cols,
+                                         seam="global.dispatch",
                                          max_bins=_replace_max_claims())
     t2 = time.perf_counter()
 

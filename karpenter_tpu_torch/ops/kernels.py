@@ -49,7 +49,11 @@ Where the two frameworks differ and this module compensates:
   dynamic-update-slice fusion) but not in the probe (a scatter-add of the
   product); the capacity formula ``ad − load·inv_d`` in the solve when the
   bin and type axes have the same length (otherwise LLVM hoists the
-  product out of the vectorised type loop) and never in the probe.
+  product out of the vectorised type loop) and never in the probe. The
+  batched solve (``jit(vmap(packed))`` over stacked snapshots, the solver
+  service's coalesced dispatch) contracts ``load2``, ``new_load``,
+  ``eload2`` and the capacity formula as the solve does (the formula only
+  when the two axes match) and scatter-adds the debit, as the probe does.
   ``pack`` computes those sites with ``fma32``, the rest op by op, so a
   capacity at a float tie floors as the reference's does. ``fma32`` forms
   the product exactly in float64 (two 24-bit significands fit in 53
@@ -662,11 +666,12 @@ def _pack(args, F, tmpl_full, g_count, e_avail, **kw):
 
 def solve_step(args: dict, max_bins: int, with_existing: bool | None = None,
                level_bits: int = _LEVEL_SEARCH_ITERS,
-               max_minv: int | None = None) -> dict:
+               max_minv: int | None = None, fma_rem: bool = True) -> dict:
     """The full single-call solve over one snapshot's tensor dict (see
     ``from_kernel_args``): defaults for absent tensor families, then
     feasibility + pack (one row) on the tensors' device. Returns the pack
-    dict plus ``F`` and ``price``."""
+    dict plus ``F`` and ``price``. ``fma_rem=False`` is the rule of the
+    reference's batched solve (module docstring)."""
     if max_minv is None:
         # host read of an input, before any device work is queued
         mv = args.get("m_minv")
@@ -681,7 +686,8 @@ def solve_step(args: dict, max_bins: int, with_existing: bool | None = None,
                 args["e_avail"][None], max_bins=max_bins,
                 with_existing=with_existing, level_bits=level_bits,
                 max_minv=max_minv,
-                fma_cap=max_bins == args["t_alloc"].shape[0])
+                fma_cap=max_bins == args["t_alloc"].shape[0],
+                fma_rem=fma_rem)
     out = {k: v[0] for k, v in out.items()}
     out["F"] = F
     out["price"] = price

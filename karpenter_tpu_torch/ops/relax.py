@@ -55,8 +55,16 @@ Each dispatch records the JAX package's compile-ledger key under the
 ``relax.kernel`` family and its ``relax.grid`` padding
 (obs/devplane.py); the joint LP and each rounding window run in the
 ``relax.solve`` and ``relax.round`` spans, which end after the host read
-that waits for the device. Left out: the replay capture of the joint
-decision (ROADMAP.md Queue 1 item 1).
+that waits for the device.
+
+Replay capture (obs/capsule.py, seam ``relax.dispatch``): a joint round
+that reaches the rounding descent records the LP tensors, the standard
+counterfactual-row sidecars and the device window's decision ``k_sel``
+(the first flag-passing, price-gated prefix) in the JAX package's layout;
+``replay_joint`` re-runs the LP and the windows from the tensors alone,
+``replay_host_round`` is the A/B table's host oracle. The LP's ``y`` rides
+as the ``cf//rx_y`` sidecar, ungraded: its float32 reductions round
+differently on the card, on the CPU and under XLA.
 """
 
 from __future__ import annotations
@@ -72,7 +80,9 @@ from karpenter_tpu_torch.ops.kernels import resolve_device
 from karpenter_tpu_torch.utils.envknobs import env_float, env_int, env_str
 
 __all__ = ["relax_enabled", "lp_bin_floor", "floor_inputs", "floor_lb",
-           "joint_relax_plan", "joint_lp", "round_window", "RELAX_STATS"]
+           "joint_relax_plan", "joint_lp", "round_window",
+           "rounding_windows", "replay_joint",
+           "replay_host_round", "RELAX_STATS"]
 
 # rounding window width: how many candidate prefixes below the LP bound
 # one rounding pass scores
@@ -278,7 +288,8 @@ def _clip(x, lo, hi):
     return torch.minimum(torch.maximum(x, lo), hi)
 
 
-def joint_lp(t: dict, max_iters: int, tol: float, rho: float) -> dict:
+def joint_lp(t: dict, max_iters: int, tol: float, rho: float,
+             with_y: bool = False) -> dict:
     """PDHG over the joint consolidation LP on the tensors' device — the
     JAX package's ``_joint_kernel`` step for step. ``t`` holds the
     ``_joint_tensors`` (float32, ``colcand``/``candidx`` int32).
@@ -289,8 +300,11 @@ def joint_lp(t: dict, max_iters: int, tol: float, rho: float) -> dict:
     per-column per-resource capacity with a retired column's capacity
     scaling away as ``y`` rises (``p``), and the monotone prefix chain
     ``y[c+1] <= y[c]`` (``m``). Blocks of ``CHECK_EVERY`` steps, one host
-    read of the convergence flag per block. Returns ``y``, ``q``,
-    ``iters``, ``blocks``, ``converged``, ``viol``, ``k_frac``."""
+    read of the convergence flag per block and one of ``viol`` and
+    ``sum(y)`` at the end — with ``y`` too when ``with_y`` (a replay
+    capture's sidecar). Returns ``y`` (on the device), ``y_host`` (None
+    without ``with_y``), ``q``, ``iters``, ``blocks``, ``converged``,
+    ``viol``, ``k_frac``."""
     d, capR, compat, contrib = t["d"], t["capR"], t["compat"], t["contrib"]
     base_req, w, nmask, gmask, c_x = (t["base_req"], t["w"], t["nmask"],
                                       t["gmask"], t["c_x"])
@@ -361,8 +375,12 @@ def joint_lp(t: dict, max_iters: int, tol: float, rho: float) -> dict:
         dy = torch.abs(y - y0).amax()
         # one host read per block: the JAX while_loop's `done`
         done = bool((viol <= tol) & (dy <= tol))
-    return {"y": y, "q": q, "iters": it, "blocks": blocks,
-            "converged": done, "viol": float(viol), "k_frac": float(y.sum())}
+    host = torch.cat([viol.reshape(1), y.sum().reshape(1)]
+                     + ([y] if with_y else [])).cpu().numpy()
+    return {"y": y, "y_host": host[2:] if with_y else None, "q": q,
+            "iters": it,
+            "blocks": blocks, "converged": done, "viol": float(host[0]),
+            "k_frac": float(host[1])}
 
 
 def round_window(req_w, surv_w, d, compat, claim_idx: int):
@@ -464,6 +482,48 @@ def _joint_tensors(bundle, col_arr, contrib, base_req, claim_compat):
                 nmask=nmask, gmask=gmask, c_x=c_x), (Gp, Ec, Np, R)
 
 
+def rounding_windows(req_of, col_arr, t: dict, E: int, order, k_ub: int,
+                     N: int, n_windows: int, device):
+    """The bounded rounding descent's windows, shared by the live rung
+    (``joint_relax_plan``) and its capsule replay (``replay_joint``). From
+    one prefix of headroom above the LP bound ``k_ub`` (the iteration ends
+    on primal residual and movement, not on the duality gap), each window
+    scores up to ``ROUND_WINDOW`` prefixes k, largest first, in one
+    ``round_window`` dispatch on ``device`` over the LP tensors ``t``
+    (numpy), their groups in the host oracle's ``order``: prefix k
+    retires ``col_arr[:k]`` and needs ``req_of(k)`` pods per group. Yields ``(ks, bad, claim, secs)`` per
+    window, ``bad``/``claim`` read back to the host, for at most
+    ``n_windows`` windows; the caller ends the descent by leaving the
+    loop."""
+    G = len(order)
+    Gp, Ec = t["compat"].shape
+    order_p = np.concatenate([order, np.arange(G, Gp)]).astype(np.intp)
+    d_ord = torch.from_numpy(t["d"][order_p]).to(device)
+    compat_ord = torch.from_numpy(t["compat"][order_p]).to(device)
+    k_lo = int(min(N, k_ub + 1))
+    for _ in range(n_windows):
+        if k_lo < 2:
+            return
+        ks = list(range(k_lo, max(1, k_lo - ROUND_WINDOW), -1))
+        req_w = np.zeros((ROUND_WINDOW, Gp), np.float32)
+        surv_w = np.zeros((ROUND_WINDOW, Ec), np.float32)
+        for i, k in enumerate(ks):
+            req_w[i, :G] = req_of(k)[order]
+            mask = np.ones(Ec, np.float32)
+            mask[col_arr[:k]] = 0.0
+            surv_w[i] = mask
+        # surv rows carry the capacity budget directly (cap * mask)
+        surv_w = surv_w[:, :, None] * t["capR"][None, :, :]
+        t0 = time.perf_counter()
+        with obs.span("relax.round", window=len(ks)):
+            bad, claim = round_window(torch.from_numpy(req_w).to(device),
+                                      torch.from_numpy(surv_w).to(device),
+                                      d_ord, compat_ord, E)
+            host = torch.stack([bad, claim]).cpu().numpy()
+        yield ks, host[0], host[1], time.perf_counter() - t0
+        k_lo = ks[-1] - 1
+
+
 def joint_relax_plan(bundle, candidates, col_arr, contrib, cum, timings,
                      device=None):
     """The relax fast path of ``joint_retirement_plan``: solve the
@@ -472,6 +532,7 @@ def joint_relax_plan(bundle, candidates, col_arr, contrib, cum, timings,
     prefix with the FFD oracle. Returns ``(JointPlan, None)`` on a
     shipped plan or ``(None, cause)`` when the round falls to the ladder
     (``cause`` is also in ``RELAX_STATS['last_fallback']``)."""
+    from karpenter_tpu_torch.obs import capsule as _capsule
     from karpenter_tpu_torch.ops import consolidate as _cons
 
     dev = resolve_device(device, "the LP relax rungs")
@@ -499,7 +560,9 @@ def joint_relax_plan(bundle, candidates, col_arr, contrib, cum, timings,
     key = (Gp, Ec, Np, R, _relax_max_iters(), _relax_tol(), _relax_rho())
     with obs.span("relax.solve", family=f"{Gp}x{Ec}", n=N):
         t_dev = {k: torch.from_numpy(v).to(dev) for k, v in tensors.items()}
-        out = joint_lp(t_dev, key[4], key[5], key[6])
+        # y rides the host read only for a replay capture
+        out = joint_lp(t_dev, key[4], key[5], key[6],
+                       with_y=_capsule.capture_enabled())
     secs = time.perf_counter() - t0
     devplane.record_dispatch("relax.kernel", key, secs)
     devplane.record_padding("relax.grid", G * (bundle.esnap.E + 1) * N,
@@ -533,45 +596,18 @@ def joint_relax_plan(bundle, candidates, col_arr, contrib, cum, timings,
     # _greedy_displace sort) — not the equilibrated tensors' order
     order = np.argsort(
         -np.asarray(snap.g_demand, np.float64)[:G].sum(1), kind="stable")
-    order_p = np.concatenate(
-        [order, np.arange(G, Gp)]).astype(np.intp)
-    d_ord = torch.from_numpy(tensors["d"][order_p]).to(dev)
-    compat_ord = torch.from_numpy(tensors["compat"][order_p]).to(dev)
-    base_cap = tensors["capR"]
     # price criterion for claim-bearing prefixes — the SAME ladder the
     # FFD path applies
     prefix_known, claim_ok = _cons._prefix_price_ok(bundle, candidates)
     price_blocked = False
     attempts = 0
     chosen = None
-    # one prefix of headroom above the bound: the iteration terminates on
-    # primal residual + movement, not duality gap
-    k_lo = int(min(N, k_ub + 1))
+    k_dev = 0  # first flag-passing window k — the device decision the
+    #            capsule records (host materialization may descend further)
     round_ms = 0.0
-    for _w in range(n_windows):
-        if chosen is not None or k_lo < 2 or attempts >= ROUND_ATTEMPTS:
-            break
-        ks = [k for k in range(k_lo, max(1, k_lo - ROUND_WINDOW), -1)]
-        req_w = np.zeros((ROUND_WINDOW, Gp), np.float32)
-        surv_w = np.zeros((ROUND_WINDOW, Ec), np.float32)
-        for i, k in enumerate(ks):
-            req = base_req.copy()
-            req[:G] += contrib[:k, :G].sum(axis=0)
-            req_w[i, :Gp] = np.concatenate(
-                [req[order], np.zeros(Gp - G)]).astype(np.float32)
-            mask = np.ones(Ec, np.float32)
-            mask[col_arr[:k]] = 0.0
-            surv_w[i] = mask
-        # surv rows carry the capacity budget directly (cap * mask)
-        surv_w = surv_w[:, :, None] * base_cap[None, :, :]
-        t1 = time.perf_counter()
-        with obs.span("relax.round", window=len(ks)):
-            bad, claim = round_window(torch.from_numpy(req_w).to(dev),
-                                      torch.from_numpy(surv_w).to(dev),
-                                      d_ord, compat_ord, E)
-            host = torch.stack([bad, claim]).cpu().numpy()
-            bad, claim = host[0], host[1]
-        secs = time.perf_counter() - t1
+    for ks, bad, claim, secs in rounding_windows(
+            lambda k: base_req + contrib[:k, :G].sum(axis=0), col_arr,
+            tensors, E, order, k_ub, N, n_windows, dev):
         devplane.record_dispatch("relax.kernel", ("round",) + key, secs)
         round_ms += secs * 1000.0
         RELAX_STATS["kernel_ms"] += secs * 1000.0
@@ -584,6 +620,8 @@ def joint_relax_plan(bundle, candidates, col_arr, contrib, cum, timings,
                                    and claim_ok[k - 1]):
                 price_blocked = True
                 continue
+            if k_dev == 0:
+                k_dev = k
             if attempts >= ROUND_ATTEMPTS:
                 break
             attempts += 1
@@ -597,11 +635,18 @@ def joint_relax_plan(bundle, candidates, col_arr, contrib, cum, timings,
             if plan is not None:
                 chosen = (k, plan, claim_used)
                 break
-        k_lo = ks[-1] - 1
+        if chosen is not None or attempts >= ROUND_ATTEMPTS:
+            break
     timings["relax_round_ms"] = round_ms
+    cause = None
     if chosen is None:
         cause = "price-gate" if price_blocked else "non-convergence"
         _fallback(cause)
+    _capture_joint(bundle, candidates, col_arr, contrib, cum, base_req,
+                   tensors, out, key, k_dev,
+                   0 if chosen is None else chosen[0],
+                   prefix_known, claim_ok, order)
+    if chosen is None:
         return None, cause
     k_final, (placements, overflow, n_claims), _ = chosen
     dropped = max(k_ub - k_final, 0)
@@ -627,3 +672,153 @@ def joint_relax_plan(bundle, candidates, col_arr, contrib, cum, timings,
         solver="relax",
     )
     return plan, None
+
+
+def _capture_joint(bundle, candidates, col_arr, contrib, cum, base_req,
+                   tensors, out, key, k_dev, k_shipped,
+                   prefix_known, claim_ok, order):
+    """Record the ``relax.dispatch`` capsule seam: the LP tensors (the
+    relax rung's replay inputs) merged with the standard
+    counterfactual-row sidecars and the shared numpy snapshot, so the A/B
+    table can race the relax rung against the FFD ladder and the host-FFD
+    oracle on ONE capture. The captured ``k_sel`` is the device window's
+    selection; the prefix the round shipped (which may descend further on
+    ``_greedy_displace`` refusals) rides as the ``k_shipped`` static. The
+    LP's ``y`` (read back with ``k_frac``) is the ungraded ``rx_y``
+    sidecar (module docstring)."""
+    from karpenter_tpu_torch.obs import capsule as _capsule
+
+    if not _capsule.capture_enabled():
+        return
+    from karpenter_tpu_torch.ops.consolidate import row_capture_inputs
+
+    G, N = bundle.snap.G, len(candidates)
+    shared, (Gp_probe, Ep_probe) = bundle._shared_host()
+    # the standard row sidecars: row k retires the first k+1 candidates
+    inputs = row_capture_inputs(
+        shared, bundle.base[None, :] + cum, bundle.esnap.e_avail,
+        [col_arr[: k + 1] for k in range(N)])
+    required = np.repeat(base_req[None, :G], N, axis=0)
+    required += np.cumsum(contrib[:, :G], axis=0)
+    cf = _capsule.CF_PREFIX
+    for name in JOINT_TENSORS:
+        inputs[cf + "rx_" + name] = tensors[name]
+    inputs[cf + "rx_required"] = required
+    inputs[cf + "rx_col_arr"] = col_arr.astype(np.int64)
+    # the host oracle's group order (raw-unit demand) — equilibrated
+    # tensors can't reproduce it, so it rides the capture
+    inputs[cf + "rx_order"] = np.asarray(order, np.int64)
+    inputs[cf + "rx_claim_gate"] = (
+        np.asarray(prefix_known, bool) & np.asarray(claim_ok, bool))
+    inputs[cf + "rx_y"] = out["y_host"]
+    _capsule.record_capture(
+        "relax.dispatch", inputs, {"k_sel": np.int64(k_dev)},
+        engine="relax", max_minv=bundle.max_minv,
+        Gp=Gp_probe, Ep=Ep_probe, k_shipped=int(k_shipped),
+        rx_shape=list(key[:4]), rx_iters=key[4], rx_tol=key[5],
+        rx_rho=key[6], rx_windows=_relax_round_windows(),
+        rx_n=N, rx_g=G, rx_e=bundle.esnap.E)
+
+
+# ---------------------------------------------------------------------------
+# capsule replay entries (obs/capsule.py "relax.dispatch" seam)
+# ---------------------------------------------------------------------------
+
+
+def replay_joint(cap, device) -> dict:
+    """Re-run the captured LP and rounding decision on ``device``: the
+    same iteration, the same knob values (from the capture statics, not
+    the live environment), the same price-gate bits. Returns
+    ``{"k_sel"}``, the device window's selection."""
+    iters = int(cap.static("rx_iters"))
+    tol = float(cap.static("rx_tol"))
+    rho = float(cap.static("rx_rho"))
+    N = int(cap.static("rx_n"))
+    E = int(cap.static("rx_e"))
+    t = {n: np.asarray(cap.sidecar("rx_" + n)) for n in JOINT_TENSORS}
+    out = joint_lp({k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                    for k, v in t.items()}, iters, tol, rho)
+    k_sel = 0
+    if out["converged"]:
+        k_ub = int(min(N, np.floor(out["k_frac"] + 0.5)))
+        if k_ub >= 2:
+            n_windows = int(cap.static("rx_windows", 1))
+            col_arr = np.asarray(cap.sidecar("rx_col_arr"))
+            claim_gate = np.asarray(cap.sidecar("rx_claim_gate"))
+            order = np.asarray(cap.sidecar("rx_order"))
+            req_all = np.asarray(cap.sidecar("rx_required"))
+            for ks, bad, claim, _ in rounding_windows(
+                    lambda k: req_all[k - 1], col_arr, t, E, order, k_ub,
+                    N, n_windows, device):
+                k_sel = next((k for i, k in enumerate(ks)
+                              if k >= 2 and bad[i] <= 0.5
+                              and (claim[i] <= 0.5 or claim_gate[k - 1])),
+                             0)
+                if k_sel:
+                    break
+    return {"k_sel": np.int64(k_sel)}
+
+
+def replay_host_round(cap) -> dict:
+    """The host-FFD oracle leg of the A/B table: pure-numpy greedy
+    prefix descent over the captured LP tensors — largest prefix whose
+    displaced pods place integrally (f64, the _greedy_displace
+    arithmetic), price-gated identically. The JAX package's, copied."""
+    N = int(cap.static("rx_n"))
+    G = int(cap.static("rx_g"))
+    d = np.asarray(cap.sidecar("rx_d"), dtype=np.float64)[:G]
+    capR = np.asarray(cap.sidecar("rx_capR"), dtype=np.float64)
+    compat = np.asarray(cap.sidecar("rx_compat")).astype(bool)[:G]
+    col_arr = np.asarray(cap.sidecar("rx_col_arr"))
+    req_all = np.asarray(cap.sidecar("rx_required"), dtype=np.float64)
+    claim_gate = np.asarray(cap.sidecar("rx_claim_gate"))
+    E = int(cap.static("rx_e"))
+    order = np.asarray(cap.sidecar("rx_order"))
+    k_sel = 0
+    for k in range(N, 1, -1):
+        resid = capR.copy()
+        resid[col_arr[:k]] = 0.0
+        required = req_all[k - 1]
+        ok = True
+        claim_used = False
+        for g in order:
+            n = float(required[g])
+            if n <= 0:
+                continue
+            dg = d[g]
+            pos = dg > 0
+            if not pos.any():
+                continue
+            rows = np.flatnonzero(compat[g])
+            # survivors-first, claim as last resort — the same tiering
+            # as _greedy_displace and the device window kernel
+            surv_rows = rows[rows < E]
+            caps = np.floor(
+                (resid[np.ix_(surv_rows, np.flatnonzero(pos))]
+                 / dg[pos][None, :]).min(axis=1) + 1e-9)
+            for j in np.argsort(-caps, kind="stable"):
+                if n <= 0:
+                    break
+                take = min(n, caps[j])
+                if take <= 0:
+                    break
+                resid[surv_rows[j]] -= take * dg
+                n -= take
+            if n > 0 and (rows >= E).any():
+                e = int(rows[rows >= E][0])
+                ccap = float(np.floor(
+                    (resid[e][pos] / dg[pos]).min() + 1e-9))
+                take = min(n, ccap)
+                if take > 0:
+                    claim_used = True
+                    resid[e] -= take * dg
+                    n -= take
+            if n > 0:
+                ok = False
+                break
+        if ok and claim_used and not claim_gate[k - 1]:
+            ok = False
+        if ok:
+            k_sel = k
+            break
+    return {"k_sel": np.int64(k_sel)}

@@ -18,8 +18,9 @@ causal node-lifecycle timeline (obs/timeline.py) — ``bind`` and
 observed interruption-rate feed's notices.
 
 The port's copy of ``karpenter_tpu/state/cluster.py`` with its imports
-changed. Left out: the delta journal's wire form (the solver service's,
-ROADMAP.md Queue 1 item 2), which the disruption snapshot does not read.
+changed. The delta journal's wire form (``delta_to_wire``,
+``delta_from_wire``, ``Cluster.export_deltas``) is the solver service's
+provenance window (service/solver_service.py).
 """
 
 from __future__ import annotations
@@ -84,6 +85,35 @@ def _nodepool_sched_fingerprint(np_) -> tuple:
         ),
         repr(np_.status.resources) if spec.limits else None,
     )
+
+
+def delta_to_wire(delta):
+    """JSON-safe form of one journal entry for cross-process consumers (the
+    solver fleet service's streaming delta protocol, service/
+    solver_service.py): pods serialize to their uid — a wire consumer
+    tracks rows and provenance, never live objects. ``None`` (the opaque
+    entry) survives the trip as JSON null so the far side still knows it
+    must resync."""
+    if delta is None:
+        return None
+    if delta[0] == "node":
+        return {"k": "node", "pid": delta[1]}
+    _, pod, node_name, gone = delta
+    return {
+        "k": "pod",
+        "uid": getattr(pod, "uid", str(pod)),
+        "node": node_name,
+        "gone": bool(gone),
+    }
+
+
+def delta_from_wire(obj):
+    """Inverse of :func:`delta_to_wire` (pods come back as their uid)."""
+    if obj is None:
+        return None
+    if obj.get("k") == "node":
+        return ("node", obj["pid"])
+    return ("pod", obj["uid"], obj.get("node"), bool(obj.get("gone")))
 
 
 class Cluster:
@@ -455,3 +485,17 @@ class Cluster:
         so every informer mutation that can change a scheduling answer
         must bump it."""
         return self._state_seq
+
+    def export_deltas(self, generation: int) -> tuple:
+        """``(wire_entries, current_generation)`` — the journal window since
+        ``generation`` in the JSON-safe wire form (:func:`delta_to_wire`),
+        for consumers on the far side of a process boundary. ``wire_entries``
+        is None on a journal gap (entries aged out of the capped deque),
+        mirroring :meth:`deltas_since`; an opaque in-process entry crosses
+        as JSON null. The solver fleet service's session clients ship this
+        window as the provenance of each delta round, and treat None / a
+        null entry as their cue to resync with a full snapshot."""
+        deltas = self.deltas_since(generation)
+        if deltas is None:
+            return None, self._state_seq
+        return [delta_to_wire(d) for d in deltas], self._state_seq

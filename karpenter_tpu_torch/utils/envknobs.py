@@ -15,13 +15,16 @@ of ``state/cluster.py``, and the consolidation probe's knobs in
 ``KARPENTER_DECISION_RING``, ``KARPENTER_RUNG_STEADY_AFTER``,
 ``KARPENTER_QUALITY_STEADY_AFTER``, ``KARPENTER_QUALITY_DRIFT_TOL``,
 ``KARPENTER_QUALITY_MIN_FLOOR``, ``KARPENTER_TIMELINE_RING``,
-``KARPENTER_SAVINGS_DRIFT_TOL`` and ``KARPENTER_SAVINGS_STEADY_AFTER``)."""
+``KARPENTER_SAVINGS_DRIFT_TOL`` and ``KARPENTER_SAVINGS_STEADY_AFTER``;
+the replay plane's ``KARPENTER_CAPSULE`` and ``KARPENTER_CAPSULE_BYTES``;
+the solver service's knobs in ``service/``), plus ``snapshot``, the
+replay capsule's record of every set ``KARPENTER_*`` knob."""
 
 from __future__ import annotations
 
 import os
 
-__all__ = ["env_int", "env_float", "env_bool", "env_str"]
+__all__ = ["env_int", "env_float", "env_bool", "env_str", "snapshot"]
 
 
 def env_int(name: str, default: int, minimum: int | None = None) -> int:
@@ -58,3 +61,9 @@ def env_str(name: str, default: str | None = None) -> str | None:
     """Raw passthrough: the knob's exact string, or ``default`` when
     unset, for knobs whose call sites own the value test."""
     return os.environ.get(name, default)
+
+
+def snapshot(prefix: str = "KARPENTER_") -> dict:
+    """Every set env knob under ``prefix`` — the replay capsule's
+    environment record (obs/capsule.py)."""
+    return {k: v for k, v in os.environ.items() if k.startswith(prefix)}

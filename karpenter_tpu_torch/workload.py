@@ -28,11 +28,20 @@
   ``perf/configs.py``'s spot-pinned fleet at full utilization, on one
   16-cpu type whose spot offerings anti-correlate price and interruption
   risk across four zones, for ``ChaosCloud``'s storms.
+- **multi-tenant fleet** (``run_multitenant``): the copy of
+  ``perf/run.py``'s ``run_multitenant`` — N concurrent synthetic clusters
+  (8 tenants × 3 rounds × 40 pods over ``benchmark_catalog(40)``, one
+  default NodePool) reconciling through ONE solver service started as
+  its own process (coalescing window 4 ms), in session mode with
+  streaming deltas, each tenant's claims diffed against its solo
+  in-process oracle.
 
 Every function here keeps the JAX package's sizes, seeds and draw order.
 """
 
 from __future__ import annotations
+
+from contextlib import contextmanager
 
 GIB = 2**30
 
@@ -671,4 +680,319 @@ def spot_gates(aware: dict, blind: dict, n_nodes: int) -> dict:
         "zero_late_drain_ok": bool(
             aware["pods_lost_with_lead"] == 0
             and blind["pods_lost_with_lead"] == 0),
+    }
+
+
+def multitenant_workload(seed: int, r: int, pods_per_round: int = 40) -> list:
+    """One tenant's round-``r`` pods: ``pods_per_round`` pods of seeded
+    cpu (0.25–2) and memory (1–4 GiB) requests."""
+    import random
+
+    from karpenter_tpu_torch.api.objects import ObjectMeta, Pod
+
+    rng = random.Random(seed * 1009 + r)
+    return [
+        Pod(metadata=ObjectMeta(name=f"t{seed}-r{r}-p{i}"),
+            requests={"cpu": float(rng.choice([0.25, 0.5, 1.0, 2.0])),
+                      "memory": float(rng.choice([1, 2, 4])) * GIB})
+        for i in range(pods_per_round)
+    ]
+
+
+@contextmanager
+def solver_server(device=None, env=None, log=None):
+    """A solver service (``python -m karpenter_tpu_torch.service.
+    solver_service``) started as a process of its own on ``device`` (the
+    card when None), on loopback with a metrics server, and stopped on
+    exit. ``env`` overrides its environment (``KARPENTER_COALESCE_WINDOW_MS``
+    defaults to 4); ``log`` receives its output. Yields ``(target,
+    metrics_port)`` once a Register round trip answers. Needs ``grpc``."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    import time
+
+    import grpc
+
+    from karpenter_tpu_torch.service.solver_service import (
+        _GRPC_OPTS,
+        _METHOD_REGISTER,
+        _pack,
+    )
+
+    def _free_port() -> int:
+        sock = socket.socket()
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+        sock.close()
+        return port
+
+    grpc_port, metrics_port = _free_port(), _free_port()
+    child_env = dict(os.environ)
+    child_env.setdefault("KARPENTER_COALESCE_WINDOW_MS", "4")
+    child_env.update(env or {})
+    argv = [sys.executable, "-m", "karpenter_tpu_torch.service.solver_service",
+            "--host", "127.0.0.1", "--port", str(grpc_port),
+            "--metrics-port", str(metrics_port)]
+    if device is not None:
+        argv += ["--device", str(device)]
+    out = open(log, "w") if log else subprocess.DEVNULL
+    proc = subprocess.Popen(
+        argv, env=child_env, stdout=out, stderr=subprocess.STDOUT,
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    target = f"127.0.0.1:{grpc_port}"
+    chan = grpc.insecure_channel(target, options=_GRPC_OPTS)
+    try:
+        # readiness: a Register round trip proves the serving stack is up
+        ping = chan.unary_unary(_METHOD_REGISTER, request_serializer=None,
+                                response_deserializer=None)
+        deadline = time.monotonic() + 120.0
+        while True:
+            try:
+                ping(_pack({}, {"tenant": "readiness-probe"}),
+                     timeout=10.0, wait_for_ready=True)
+                break
+            except grpc.RpcError:
+                if time.monotonic() > deadline or proc.poll() is not None:
+                    raise RuntimeError(
+                        f"solver service failed to start (rc {proc.poll()})")
+                time.sleep(0.5)
+        yield target, metrics_port
+    finally:
+        chan.close()
+        proc.terminate()
+        try:
+            proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        if log:
+            out.close()
+
+
+def run_multitenant(n_tenants: int = 8, rounds: int = 3,
+                    pods_per_round: int = 40, think_ms: float = 200.0,
+                    server=None, server_device=None, server_env=None,
+                    oracle_device="cpu") -> dict:
+    """The multi-tenant fleet row: ``n_tenants`` concurrent synthetic
+    clusters sustain round-robin reconcile loops through ONE solver
+    service — session mode, streaming deltas, coalesced dispatch — and
+    the row reports per-tenant p50/p99 (the server's ``/slo``), the p99
+    ratio against a single tenant on the same warm server, the coalesce
+    rate, the session-cache hit rate, the delta accounting (steady state
+    ships deltas only: full uploads == tenants, zero forced resyncs), the
+    client's remote fallbacks, and a seeded isolation verdict — every
+    tenant's per-round claim compositions diffed against its solo
+    in-process oracle (``TorchSolver(device=oracle_device)``). The
+    clients are CPU processes' (``RemoteSolver``'s default device).
+    ``server`` is a running service's ``(target, metrics_port)``; without
+    one, ``solver_server`` starts one on ``server_device`` with
+    ``server_env`` for the row. Needs ``grpc``."""
+    if server is None:
+        with solver_server(server_device, server_env) as srv:
+            return run_multitenant(
+                n_tenants, rounds, pods_per_round, think_ms, server=srv,
+                oracle_device=oracle_device)
+    import json
+    import random
+    import threading
+    import time
+    import urllib.request
+
+    from karpenter_tpu_torch.api.nodepool import NodePool
+    from karpenter_tpu_torch.api.objects import ObjectMeta
+    from karpenter_tpu_torch.cloudprovider.catalog import benchmark_catalog
+    from karpenter_tpu_torch.models import ClaimTemplate, TorchSolver
+    from karpenter_tpu_torch.obs import decisions
+    from karpenter_tpu_torch.operator import metrics as m
+    from karpenter_tpu_torch.operator.metrics import Registry
+    from karpenter_tpu_torch.service import RemoteSolver
+
+    config = f"multitenant-{n_tenants}x{rounds}x{pods_per_round}"
+    target, metrics_port = server
+
+    def _scrape(path: str) -> str:
+        with urllib.request.urlopen(
+            f"http://127.0.0.1:{metrics_port}{path}", timeout=10
+        ) as r:
+            return r.read().decode()
+
+    def _prom(text: str, name: str) -> list:
+        """[(labels dict, value)] for one exposition family."""
+        out = []
+        for line in text.splitlines():
+            if not line.startswith(name):
+                continue
+            rest = line[len(name):]
+            labels = {}
+            if rest.startswith("{"):
+                inner, rest = rest[1:].split("}", 1)
+                for kv in inner.split(","):
+                    if kv:
+                        k, v = kv.split("=", 1)
+                        labels[k] = v.strip('"')
+            elif not rest.startswith(" "):
+                continue  # a longer family name sharing the prefix
+            out.append((labels, float(rest.strip())))
+        return out
+
+    reg = Registry()  # client-side families (fallbacks, retries, bytes)
+    pool = NodePool(metadata=ObjectMeta(name="default"))
+    its = {pool.name: benchmark_catalog(40)}
+    templates = [ClaimTemplate(pool)]
+    # reconcile cadence: real clusters think between rounds
+    think_s = think_ms / 1000.0
+
+    def reconcile_loop(tenant: str, seed: int, sizes: dict,
+                       stagger: float = 0.0):
+        solver = RemoteSolver(target, registry=reg, tenant=tenant)
+        per_round = []
+        # each cluster's reconcile cadence has its own phase and jitter
+        rng = random.Random(seed ^ 0x5EED)
+        if stagger:
+            time.sleep(stagger * rng.random())
+        for r in range(rounds):
+            res = solver.solve(multitenant_workload(seed, r, pods_per_round),
+                               templates, its)
+            per_round.append(sorted(len(c.pods) for c in res.new_claims))
+            if think_s and r + 1 < rounds:
+                time.sleep(think_s * (0.75 + 0.5 * rng.random()))
+        sizes[tenant] = (per_round, solver.session_stats)
+
+    def run_fleet(prefix: str, sizes: dict, errors: dict | None = None):
+        def guarded(tenant, seed):
+            try:
+                reconcile_loop(tenant, seed, sizes, think_s)
+            except Exception as e:  # reported in the row
+                if errors is None:
+                    raise
+                errors[tenant] = f"{type(e).__name__}: {e}"
+
+        threads = [
+            threading.Thread(target=guarded, args=(f"{prefix}-{i}", i))
+            for i in range(n_tenants)
+        ]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        return (time.perf_counter() - t0) * 1000.0
+
+    fallbacks0 = reg.counter(m.SOLVER_REMOTE_FALLBACKS).total()
+    # warm the shape families — solo AND concurrent — so the measured
+    # phase is the steady state every tenant rides
+    reconcile_loop("warm", 999, {})
+    run_fleet("warm", {})
+    # single-tenant baseline on the same warm server, once per tenant so
+    # its p99 pools as many samples as the worst-tenant max
+    single: dict = {}
+    for _ in range(n_tenants):
+        reconcile_loop("single", 998, single)
+
+    pre = _scrape("/metrics")
+    reqs0 = sum(v for _, v in _prom(
+        pre, "karpenter_solver_coalesce_batch_size_sum"))
+    coalesced0 = sum(v for _, v in _prom(
+        pre, "karpenter_solver_coalesced_requests_total"))
+    dec0 = decisions.counts()
+    sizes: dict = {}
+    fleet_errors: dict = {}
+    total_ms = run_fleet("tenant", sizes, errors=fleet_errors)
+    fleet_rungs = decisions.rung_delta(dec0, decisions.counts())
+    missing = [f"tenant-{i}" for i in range(n_tenants)
+               if f"tenant-{i}" not in sizes]
+    if missing:
+        return {"config": config, "degraded": True,
+                "error": {t: fleet_errors.get(t, "thread died without "
+                          "reporting") for t in missing}}
+    fallbacks = int(reg.counter(m.SOLVER_REMOTE_FALLBACKS).total()
+                    - fallbacks0)
+
+    # seeded isolation: every tenant's per-round claim compositions must
+    # equal its solo in-process oracle's
+    isolation_ok = True
+    for i in range(n_tenants):
+        oracle = TorchSolver(device=oracle_device)
+        for r in range(rounds):
+            ref = oracle.solve(multitenant_workload(i, r, pods_per_round),
+                               templates, its)
+            got = sizes[f"tenant-{i}"][0][r]
+            if got != sorted(len(c.pods) for c in ref.new_claims):
+                isolation_ok = False
+
+    slo = json.loads(_scrape("/slo"))
+    tenants_view = slo["slo"]["solver_service"].get("tenants", {})
+    per_tenant = {
+        t: {
+            "p50": tenants_view.get(t, {}).get("p50_ms", 0.0),
+            "p95": tenants_view.get(t, {}).get("p95_ms", 0.0),
+            "p99": tenants_view.get(t, {}).get("p99_ms", 0.0),
+        }
+        for t in (f"tenant-{i}" for i in range(n_tenants))
+    }
+    worst_p99 = max(q["p99"] for q in per_tenant.values())
+    single_p99 = tenants_view.get("single", {}).get("p99_ms", 0.0)
+    deltas = {"full_uploads": 0, "delta_rounds": 0, "resyncs": 0,
+              "retries": 0, "bytes_full": 0, "bytes_delta": 0}
+    for _, stats in sizes.values():
+        for k in deltas:
+            deltas[k] += stats.get(k, 0)
+    post = _scrape("/metrics")
+    total_reqs = sum(v for _, v in _prom(
+        post, "karpenter_solver_coalesce_batch_size_sum")) - reqs0
+    coalesced = sum(v for _, v in _prom(
+        post, "karpenter_solver_coalesced_requests_total")) - coalesced0
+    measured = {f"tenant-{i}" for i in range(n_tenants)}
+    hits = sum(
+        v for lb, v in _prom(post, "karpenter_solver_session_cache_hits_total")
+        if lb.get("tenant") in measured and lb.get("kind") == "delta")
+    stores = sum(
+        v for lb, v in _prom(post,
+                             "karpenter_solver_session_cache_stores_total")
+        if lb.get("tenant") in measured)
+    evictions = sum(
+        v for lb, v in _prom(
+            post, "karpenter_solver_session_cache_evictions_total")
+        if lb.get("tenant") in measured)
+    bleed = sum(
+        v for lb, v in _prom(post, "karpenter_solver_bleed_checks_total")
+        if lb.get("outcome") == "bleed")
+    if bleed:
+        isolation_ok = False
+    # the billing plane (/usage): the per-tenant billed total must equal
+    # the server's own devplane dispatch-seconds ledger
+    usage = json.loads(_scrape("/usage"))
+    billing_gap = abs(usage["total_device_seconds"]
+                      - usage["devplane_dispatch_seconds"])
+    return {
+        "config": config,
+        "tenants": n_tenants,
+        "rounds": rounds,
+        "total_ms": total_ms,
+        "single_p99_ms": single_p99,
+        "worst_p99_ms": worst_p99,
+        "p99_ratio": worst_p99 / max(single_p99, 1e-9),
+        "per_tenant": per_tenant,
+        "coalesce": {
+            "requests": int(total_reqs),
+            "coalesced": int(coalesced),
+            "rate": coalesced / total_reqs if total_reqs else 0.0,
+        },
+        "session_cache": {
+            "hits": int(hits),
+            "stores": int(stores),
+            "hit_rate": hits / (hits + stores) if hits + stores else 0.0,
+            "evictions": int(evictions),
+        },
+        "deltas": deltas,
+        "deltas_only_steady_state": (
+            deltas["full_uploads"] == n_tenants and deltas["resyncs"] == 0),
+        "isolation_ok": isolation_ok,
+        "billing_sums_ok": bool(billing_gap <= 1e-3),
+        "rungs": fleet_rungs,
+        # >0 means some solves never crossed the service
+        "client_fallbacks": fallbacks,
+        "degraded": fallbacks > 0 or single_p99 <= 0,
     }

@@ -17,8 +17,9 @@
   ``test_devplane.py``, ``test_decisions.py`` and ``test_timeline.py``),
   ``KARPENTER_METRICS_BIND`` narrows the listener; an unknown kind is
   rejected;
-  ``--solver`` and ``KARPENTER_SOLVER_TARGET`` are refused with exit code
-  2; ``main()`` with no ``--device`` raises without CUDA; the module runs
+  ``--solver`` and ``KARPENTER_SOLVER_TARGET`` bind a ``RemoteSolver``
+  (an unreachable target rescues in process and counts the fallback);
+  ``main()`` with no ``--device`` raises without CUDA; the module runs
   as a program.
 
 Tolerance: exact.
@@ -334,18 +335,46 @@ def test_unknown_kind_rejected(tmp_path):
 
 
 @pytest.mark.parametrize("how", ["flag", "env"])
-def test_solver_service_is_refused(how, monkeypatch, capsys):
-    from karpenter_tpu_torch.__main__ import main
+def test_solver_service_is_refused(how, monkeypatch, capsys, tmp_path):
+    """Since the solver service is ported, ``--solver`` and
+    ``KARPENTER_SOLVER_TARGET`` are no longer refused: they bind a
+    ``RemoteSolver`` (the JAX package's ``__main__``), whose rescue of an
+    unreachable target solves in process and is counted."""
+    pytest.importorskip("grpc")
+    from karpenter_tpu_torch import __main__ as tmain
+    from karpenter_tpu_torch.service import RemoteSolver
 
-    argv = ["--device", "cpu", "--max-ticks", "1"]
+    from karpenter_tpu_torch import operator as op
+
+    bound = []
+
+    class Spy(op.Environment):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            bound.append(self)
+
+    monkeypatch.setattr(op, "Environment", Spy)
+    monkeypatch.setenv("KARPENTER_BATCH_IDLE_DURATION", "0")
+    monkeypatch.setenv("KARPENTER_BATCH_MAX_DURATION", "0")
+    argv = ["--device", "cpu", "--max-ticks", "3", "--tick", "0.05",
+            "--manifest", str(write_manifest(tmp_path / "m.json",
+                                             replicas=1))]
     if how == "flag":
         argv += ["--solver", "127.0.0.1:1"]
     else:
         monkeypatch.setenv("KARPENTER_SOLVER_TARGET", "127.0.0.1:1")
-    with pytest.raises(SystemExit) as e:
-        main(argv)
-    assert e.value.code == 2
-    assert "solver service is not in the port" in capsys.readouterr().err
+    assert tmain.main(argv) == 0
+    err = capsys.readouterr().err
+    assert "solver plane at 127.0.0.1:1" in err
+    (env,) = bound
+    solver = env.provisioner.solver
+    assert isinstance(solver, RemoteSolver) and solver.device.type == "cpu"
+    assert solver._cluster is env.cluster
+    from karpenter_tpu_torch.operator import metrics as m
+
+    # the unreachable plane's solves were rescued in process and counted
+    # on the environment's own registry
+    assert env.registry.counter(m.SOLVER_REMOTE_FALLBACKS).total() >= 1
 
 
 def test_main_without_device_raises_without_cuda(monkeypatch):

@@ -11,10 +11,12 @@ for the JAX package, ``TorchSolver(device="cpu")`` for the port, whose
 engine rung is named ``device`` where the JAX package's is ``xla``.
 
 Left to their JAX files: the mesh cases (``mesh.partition`` and the
-``mesh.shards`` pad site: the mesh is not ported), the solver-service
-cases (``session.sync``: not ported), the GL502 producer census (the
-port's static analysis is not ported) and replay (``python -m
-karpenter_tpu_torch.obs replay`` exits 2, pinned below). The two slow
+``mesh.shards`` pad site: the mesh is not ported) and the GL502 producer
+census (the port's static analysis is not ported). The solver-service
+cases (``session.sync``) are in ``tests/test_torch_service.py`` and the
+replay cases in ``tests/test_torch_capsule.py``; pinned below, ``python
+-m karpenter_tpu_torch.obs replay`` returns the JAX package's exit code
+on a missing capsule. The two slow
 acceptance cases stay slow here as in ``test_obs.py``; their card
 counterparts are ``chip_smoke.py``'s obs phase.
 
@@ -70,6 +72,7 @@ def P(request, tmp_path):
     ns.obs.configure(enabled=True, dump_dir=str(tmp_path), capacity=8,
                      dump_all=False)
     ns.obs.RECORDER.clear()
+    ns.obs.capsule.reset()
     ns.devplane.reset()
     ns.decisions.reset()
     ns.timeline.reset()
@@ -1298,11 +1301,16 @@ class TestIntrospection:
 
 
 def test_port_replay_is_refused(capsys):
+    """Since replay capsules are ported the port's ``replay`` no longer
+    refuses with exit 2: a capsule it cannot load exits 1, as the JAX
+    package's CLI does (the replay cases: ``tests/test_torch_capsule.py``)."""
+    from karpenter_tpu.obs.__main__ import main as jmain
     from karpenter_tpu_torch.obs.__main__ import main
 
-    assert main(["replay", "x.capsule.npz", "--ab"]) == 2
+    assert main(["replay", "x.capsule.npz", "--ab"]) == 1
     err = capsys.readouterr().err
-    assert "not in the port yet" in err and "Queue 1 item 1" in err
+    assert err.startswith("replay: ") and "x.capsule.npz" in err
+    assert jmain(["replay", "x.capsule.npz", "--ab"]) == 1
 
 
 # ---------------------------------------------------------------------------

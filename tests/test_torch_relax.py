@@ -311,6 +311,39 @@ def test_joint_relax_plan_matches_jax(no_capsule):
     assert ships >= JOINT_SEEDS // 2, ships
 
 
+@pytest.mark.parametrize("capture", ["0", "1"])
+def test_joint_lp_reads_y_back_only_for_a_capture(capture, monkeypatch):
+    """The LP's ``y`` joins the end-of-solve host read only when a replay
+    capture will keep it (its ``rx_y`` sidecar); otherwise ``viol`` and
+    ``sum(y)`` alone come back, and the plan is the same either way."""
+    real_lp, seen = trelax.joint_lp, []
+
+    def spy(*a, **kw):
+        out = real_lp(*a, **kw)
+        seen.append((kw.get("with_y", False), out))
+        return out
+
+    monkeypatch.setattr(trelax, "joint_lp", spy)
+    # the capture itself (the bundle here has no shared snapshot) is
+    # test_torch_capsule.py's
+    monkeypatch.setattr(trelax, "_capture_joint", lambda *a, **kw: None)
+    bundle, cands, col_arr, contrib, cum = mk_bundle(
+        np.random.default_rng(0))
+    monkeypatch.setenv("KARPENTER_CAPSULE", "0")
+    jp, jc = jrelax.joint_relax_plan(bundle, cands, col_arr, contrib, cum, {})
+    monkeypatch.setenv("KARPENTER_CAPSULE", capture)
+    tp, tc = trelax.joint_relax_plan(bundle, cands, col_arr, contrib, cum,
+                                     {}, device="cpu")
+    assert (decision(tp, tc, trelax.RELAX_STATS)
+            == decision(jp, jc, jrelax.RELAX_STATS))
+    (with_y, out), = seen
+    assert with_y is (capture == "1")
+    if with_y:
+        assert np.array_equal(out["y_host"], out["y"].numpy())
+    else:
+        assert out["y_host"] is None
+
+
 def test_round_window_matches_jax():
     """The rounding window alone on windows past the LP bound: the same
     unplaced totals and claim usage (integer-valued floats, exactly)."""
