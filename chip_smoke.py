@@ -185,7 +185,7 @@ It imports nothing of JAX or of ``karpenter_tpu``.
    displaced is written from its last capture, and named so). Each
    seam's last capsule, and the headline's, replays ``exact`` on the
    card and on the CPU plain path; the headline capsule's A/B table
-   (device, native, host; the mesh rungs ineligible) is printed, and
+   (partitioned, replicated, device, native, host) is printed, and
    ``python -m karpenter_tpu_torch.obs replay`` runs as a program on it
    (``--ab``, on the card) and on the absorb capsule (``--device cpu``).
    One ``{"capsule": ...}`` line: capsules per seam, their bytes, the
@@ -216,6 +216,26 @@ It imports nothing of JAX or of ``karpenter_tpu``.
    ``{"service": ...}`` line with the per-tenant p50/p99 from ``/slo``
    and the coalesce rate.
 
+15. The mesh (``karpenter_tpu_torch/parallel/mesh.py``), the mesh phase:
+   ``sharded_solve_host`` at the headline's kernel arguments over
+   logical meshes of the one card (``logical_mesh``: ``cuda:0`` repeated,
+   so each shard and block runs at a real mesh's shapes). The
+   partitioned rung on 1×8 and on 2×4 must equal
+   ``partitioned_reference`` bit for bit on the card and on the CPU plain
+   path and place every pod (its used bins printed beside the unsharded
+   solve's and the headline's 1,128 nodes, with the plan, the repaired
+   pods and the overlap); the replicated rung on 2×4, under a nodepool
+   limit the solve never reaches, and the unsharded rung on 1×1 must
+   equal the unsharded ``solve_step`` on both; a 64-bin budget on 1×8
+   under ``KARPENTER_SHARD_REPAIR_MAX=0`` must fall to the unsharded rung
+   for the repair bound and equal ``solve_step`` at 64 bins. Each call
+   records one ``mesh.partition`` decision and one ``mesh.solve``
+   capture, whose capsule replays ``exact`` on the card and on the CPU;
+   compat launches are counted per rung (shards × (2 + g_pad), 2 per
+   replicated block + Gp, 2 + Gp) and its products at a shard's G×T,
+   G×M and 1×budget and a replicated block's G×T join the compat cases.
+   One ``{"mesh": ...}`` line.
+
 ``python3 chip_smoke.py --full-storm [N]`` runs only the storm at
 ``perf/run.py``'s size (N 1,000) with the ladder on, round by round.
 
@@ -223,8 +243,9 @@ Prints one ``{"kernels": [...]}`` line, one ``{"solve": ...}`` line, one
 ``{"live_round": ...}`` line, one ``{"consolidation": ...}`` line, one
 ``{"operator": ...}`` line, one ``{"admission": ...}`` line, one
 ``{"spot": ...}`` line, one ``{"engines": ...}`` line, one ``{"obs": ...}``
-line, one ``{"capsule": ...}`` line, one ``{"service": ...}`` line, the
-card line, and as its last line ``{"ok": true, "device": {...}}``. Any
+line, one ``{"capsule": ...}`` line, one ``{"service": ...}`` line, one
+``{"mesh": ...}`` line, the card line, and as its last line ``{"ok":
+true, "device": {...}}``. Any
 failure raises and exits non-zero; so does a machine without CUDA.
 """
 
@@ -2863,7 +2884,7 @@ def obs_phase(card: str, trace_dir: Path, headline: dict) -> dict:
 # ---- replay capsules and the solver service (the ninth main path) ----
 
 # the capsule phase's seams (obs/capsule.py SEAMS less the mesh's, which
-# the port does not have yet): each one the runs below reach
+# the mesh phase captures and replays): each one the runs below reach
 CAPSULE_SEAMS = ("solver.invoke", "probe.dispatch", "global.dispatch",
                  "relax.dispatch", "interruption.dispatch",
                  "preempt.dispatch", "service.solve")
@@ -3353,6 +3374,211 @@ def service_phase(kernels, workdir: Path) -> tuple:
             capsule_cases("service", rows[0], kernels))
 
 
+# ---- the mesh (the tenth main path) ----
+
+# the logical meshes on the one card (one device repeated over the shape,
+# so each shard and block runs at a real mesh's shapes): the partitioned
+# rung on 1x8 and on 2x4 (the DCN layout's shape), the replicated rung on
+# 2x4, the unsharded rung on 1x1; a bin budget under which the headline's
+# shards straddle, for the repair bound
+MESH_SHAPES = ((1, 8), (2, 4))
+MESH_REPL_SHAPE = (2, 4)
+MESH_STRADDLE_BINS = 64
+# a nodepool limit the headline never reaches: finite, so the partition is
+# refused ("nodepool-limits") and the replicated program runs
+MESH_LIMIT = 1e18
+MESH_OUT = ("assign", "assign_e", "used", "tmpl", "F")
+
+
+def mesh_phase(args_np, max_bins, level_bits, head_nodes, kernels,
+               cuda_kernels, workdir: Path) -> tuple:
+    """The mesh (``karpenter_tpu_torch/parallel/mesh.py``) on the card, at
+    the headline's kernel arguments, over logical meshes of ``cuda:0``:
+    each rung through ``sharded_solve_host`` with compat launches counted
+    from 0, one ``mesh.partition`` decision and one ``mesh.solve`` capture
+    per call; each rung equal bit for bit to its oracle on the card and on
+    the CPU plain path (the partitioned rung to ``partitioned_reference``,
+    the others to the unsharded ``solve_step``); each capture written and
+    replayed ``exact`` on the card and on the CPU. Returns the
+    ``{"mesh": ...}`` line, the path's launches, and the compat cases at
+    the shard and block shapes."""
+    import torch
+
+    from karpenter_tpu_torch.obs import capsule, decisions
+    from karpenter_tpu_torch.ops.tensorize import shard_view
+    from karpenter_tpu_torch.parallel import mesh as pmesh
+
+    from karpenter_tpu_torch.models import TorchSolver
+
+    dev = torch.device("cuda")
+    Gp = int(args_np["g_count"].shape[0])
+    Tp = int(args_np["t_mask"].shape[0])
+    total_pods = int(np.asarray(args_np["g_count"]).sum())
+    launches = {"compat": 0}
+    # the real mesh counts real cards: on one card it is degenerate and
+    # the solver never routes to it
+    n_cards = torch.cuda.device_count()
+    check(pmesh.make_mesh().devices.size == n_cards,
+          f"make_mesh() is not over the {n_cards} card(s)")
+    check((TorchSolver()._maybe_mesh() is None) == (n_cards == 1),
+          "TorchSolver()._maybe_mesh() does not follow the card count")
+
+    def solve_step_host(args, mb, device):
+        out = kernels.solve_step(kernels.from_kernel_args(args, device),
+                                 max_bins=mb, level_bits=level_bits)
+        return pmesh._to_host(out, MESH_OUT)
+
+    def same(got, want, label):
+        for k in MESH_OUT:
+            a, b = np.asarray(got[k]), np.asarray(want[k])
+            check(a.shape == b.shape and np.array_equal(a, b),
+                  f"mesh {label}: {k} differs from its oracle "
+                  f"({a.shape} vs {b.shape})")
+
+    def run(label, mesh, args, mb, **knobs):
+        """One counted sharded_solve_host: its host dict, rung record and
+        capsule path."""
+        before = decisions.counts()
+        cuda_kernels.reset_launches()
+        with CaptureSpy() as spy, env_knobs(**knobs):
+            t0 = time.perf_counter()
+            host = pmesh.sharded_solve_host(mesh, args, mb,
+                                            level_bits=level_bits)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            n = cuda_kernels.LAUNCHES["compat"]
+            rec = spy.last.get("mesh.solve")
+            path = rec and capsule.write_capsule(
+                rec, path=str(workdir / f"mesh-{label}.capsule.npz"),
+                why="forced")
+        launches["compat"] += n
+        delta = decisions.rung_delta(before, decisions.counts())
+        lr = pmesh.LAST_RUN
+        check(spy.counts.get("mesh.solve") == 1 and path,
+              f"mesh {label}: {spy.counts} captures, capsule {path}")
+        check(delta.get("mesh.partition") == {lr.get("engine"): 1}
+              and len(delta) == 1,
+              f"mesh {label}: decisions {delta}, not one mesh.partition "
+              f"verdict for the {lr.get('engine')} rung")
+        used = np.asarray(host["used"])
+        row = {"mesh": list(mesh.devices.shape), "max_bins": mb,
+               "engine": lr.get("engine"), "reason": lr.get("reason"),
+               "n_shards": lr.get("n_shards"), "budget": lr.get("budget"),
+               "g_pad": lr.get("g_pad"),
+               "balance_ratio": lr.get("balance_ratio"),
+               "repaired_pods": lr.get("repaired_pods"),
+               "overlap_ms": lr.get("overlap_ms"),
+               "shards": lr.get("shards"), "bins": int(used.shape[0]),
+               "nodes": int(used.sum()),
+               "placed": int(np.asarray(host["assign"]).sum()
+                             + np.asarray(host["assign_e"]).sum()),
+               "wall_ms": wall_ms, "compat_launches": n}
+        return host, row, Path(path)
+
+    rows, paths = {}, {}
+    ref = {}
+    # the partitioned rung, against the sequential oracle of its plan
+    for shape in MESH_SHAPES:
+        label = "partitioned-" + "x".join(map(str, shape))
+        host, row, paths[label] = run(
+            label, pmesh.logical_mesh(shape, dev), args_np, max_bins)
+        check(row["engine"] == "partitioned",
+              f"mesh {label}: the {row['engine']} rung ran ({row['reason']})")
+        n = row["n_shards"]
+        check(row["compat_launches"] == n * (2 + row["g_pad"]),
+              f"mesh {label}: compat launches {row['compat_launches']} != "
+              f"{n} shards x (2 + g_pad {row['g_pad']})")
+        check(row["placed"] == total_pods,
+              f"mesh {label}: placed {row['placed']} of {total_pods} pods")
+        for name, device in (("card", dev), ("cpu", "cpu")):
+            if (name, n) not in ref:
+                t0 = time.perf_counter()
+                ref[name, n] = pmesh.partitioned_reference(
+                    args_np, max_bins, n, level_bits=level_bits,
+                    device=device)
+                row[f"oracle_{name}_ms"] = (time.perf_counter() - t0) * 1e3
+            same(host, ref[name, n], f"{label} vs the oracle on the {name}")
+        rows[label] = row
+    base = {name: solve_step_host(args_np, max_bins, device)
+            for name, device in (("card", dev), ("cpu", "cpu"))}
+    same(base["card"], base["cpu"], "unsharded card vs cpu")
+    unsharded_nodes = int(base["card"]["used"].sum())
+    # the replicated rung: a finite limit the solve never reaches
+    args_lim = dict(args_np, m_limits=np.full_like(
+        np.asarray(args_np["m_limits"]), MESH_LIMIT))
+    label = "replicated-" + "x".join(map(str, MESH_REPL_SHAPE))
+    host, row, paths[label] = run(
+        label, pmesh.logical_mesh(MESH_REPL_SHAPE, dev), args_lim, max_bins)
+    check((row["engine"], row["reason"]) == ("replicated", "nodepool-limits"),
+          f"mesh {label}: {row['engine']}/{row['reason']}")
+    n_blocks = MESH_REPL_SHAPE[0] * MESH_REPL_SHAPE[1]
+    check(row["compat_launches"] == 2 * n_blocks + Gp,
+          f"mesh {label}: compat launches {row['compat_launches']} != "
+          f"2 x {n_blocks} blocks + Gp {Gp}")
+    for name, device in (("card", dev), ("cpu", "cpu")):
+        same(host, solve_step_host(args_lim, max_bins, device),
+             f"{label} vs solve_step on the {name}")
+    rows[label] = row
+    # the unsharded rung: a degenerate mesh
+    label = "unsharded-1x1"
+    host, row, paths[label] = run(
+        label, pmesh.logical_mesh((1, 1), dev), args_np, max_bins)
+    check((row["engine"], row["reason"]) == ("unsharded", "degenerate-mesh"),
+          f"mesh {label}: {row['engine']}/{row['reason']}")
+    check(row["compat_launches"] == 2 + Gp,
+          f"mesh {label}: compat launches {row['compat_launches']} != 2 + Gp")
+    for name in ("card", "cpu"):
+        same(host, base[name], f"{label} vs solve_step on the {name}")
+    rows[label] = row
+    # the repair bound: straddling shards and no repair allowed
+    label = "repair-bound-1x8"
+    host, row, paths[label] = run(
+        label, pmesh.logical_mesh((1, 8), dev), args_np, MESH_STRADDLE_BINS,
+        KARPENTER_SHARD_REPAIR_MAX="0")
+    check((row["engine"], row["reason"]) == ("unsharded", "repair-bound"),
+          f"mesh {label}: {row['engine']}/{row['reason']}")
+    plan = pmesh.plan_shards(args_np, 8, MESH_STRADDLE_BINS)
+    check(row["compat_launches"]
+          == plan.n_shards * (2 + plan.g_pad) + 2 + Gp,
+          f"mesh {label}: compat launches {row['compat_launches']}")
+    for name, device in (("card", dev), ("cpu", "cpu")):
+        same(host, solve_step_host(args_np, MESH_STRADDLE_BINS, device),
+             f"{label} vs solve_step on the {name}")
+    rows[label] = row
+    # every capture replays exact on the card and on the CPU plain path
+    for label, path in paths.items():
+        rows[label]["capsule"] = replay_both(path)
+    # the partitioned rung's kernels and device time on the card
+    mesh18 = pmesh.logical_mesh((1, 8), dev)
+    part_trace = device_times(
+        lambda: pmesh.sharded_solve(mesh18, args_np, max_bins,
+                                    level_bits=level_bits), 1)
+    line = {"mesh": {
+        "headline_nodes": head_nodes, "unsharded_used": unsharded_nodes,
+        "Gp": Gp, "Tp": Tp, "max_bins": max_bins, "rungs": rows,
+        "partitioned_1x8_trace": part_trace,
+        "compat_launches": launches["compat"]}}
+    # compat at the shapes the rungs give it: shard 0 of the 8-shard plan
+    # (g_pad rows against the types, the templates, and its budget of
+    # bins) and block (0, 0) of the replicated 2x4 mesh
+    plan = pmesh.plan_shards(args_np, 8, max_bins)
+    lo, hi = plan.bounds[0]
+    sh = kernels.from_kernel_args(shard_view(args_np, lo, hi, plan.g_pad),
+                                  dev)
+    gt = [sh[k] for k in ("g_mask", "g_has", "g_tol",
+                          "t_mask", "t_has", "t_tol")]
+    gm = gt[:3] + [sh[k] for k in ("m_mask", "m_has", "m_tol")]
+    gb, tb = Gp // MESH_REPL_SHAPE[0], Tp // MESH_REPL_SHAPE[1]
+    blk = kernels.from_kernel_args(
+        {**{k: args_np[k][:gb] for k in ("g_mask", "g_has", "g_tol")},
+         **{k: args_np[k][:tb] for k in ("t_mask", "t_has", "t_tol")}}, dev)
+    cases = [("mesh GxT", gt), ("mesh GxM", gm),
+             ("mesh 1xB", bins_case(sh, hi - lo, plan.budget, kernels)),
+             ("replicated GxT", [blk[k] for k in (
+                 "g_mask", "g_has", "g_tol", "t_mask", "t_has", "t_tol")])]
+    return line, launches, cases
+
+
 def main() -> int:
     import torch
 
@@ -3532,6 +3758,14 @@ def main() -> int:
                                                           Path(workdir))
         svc_line["service"]["phase_s"] = time.perf_counter() - t0
 
+    # ---- the tenth main path: the mesh, over logical meshes of the card ----
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        mesh_line, mesh_launches, mesh_cases = mesh_phase(
+            args_np, Bp, plan["level_bits"], res.node_count(), kernels,
+            cuda_kernels, Path(workdir))
+        mesh_line["mesh"]["phase_s"] = time.perf_counter() - t0
+
     # ---- every kernel against its plain version, on the card ----
     _, K, W = args_gpu["g_mask"].shape
     gt_in = [args_gpu[k] for k in ("g_mask", "g_has", "g_tol",
@@ -3541,7 +3775,7 @@ def main() -> int:
     timed = [("main GxT", gt_in), ("main GxM", gm_in),
              ("main 1xB", bins_case(args_gpu, snap.G, Bp, kernels)),
              *live_cases, *cons_cases, *op_cases, *adm_cases, *spot_cases,
-             *cap_cases, *svc_cases,
+             *cap_cases, *svc_cases, *mesh_cases,
              ("scale " + "x".join(map(str, SCALE_SHAPE)),
               compat_case(rng, *SCALE_SHAPE, dev))]
     cases = timed + [("x".join(map(str, shape)), compat_case(rng, *shape, dev))
@@ -3577,7 +3811,8 @@ def main() -> int:
                      + cons_launches["compat"] + op_launches["compat"]
                      + adm_launches["compat"] + spot_launches["compat"]
                      + eng_launches["compat"] + obs_head["compat_launches"]
-                     + cap_launches["compat"] + svc_launches["compat"]),
+                     + cap_launches["compat"] + svc_launches["compat"]
+                     + mesh_launches["compat"]),
         "launches_by_path": {"headline": launches["compat"],
                              "live_round": live_launches["compat"],
                              "consolidation": cons_launches["compat"],
@@ -3587,7 +3822,8 @@ def main() -> int:
                              "engines": eng_launches["compat"],
                              "obs": obs_head["compat_launches"],
                              "capsule": cap_launches["compat"],
-                             "service": svc_launches["compat"]},
+                             "service": svc_launches["compat"],
+                             "mesh": mesh_launches["compat"]},
         "max_abs_err": 0 if mismatches == 0 else 1,
         "tolerance": "exact (one bool per cell)",
         "mismatches": mismatches,
@@ -3636,8 +3872,9 @@ def main() -> int:
     print(json.dumps(eng_line))
     print(json.dumps(obs_line))
     print(json.dumps(cap_line))
-    svc_line["service"]["script_s"] = time.perf_counter() - t_script
     print(json.dumps(svc_line))
+    mesh_line["mesh"]["script_s"] = time.perf_counter() - t_script
+    print(json.dumps(mesh_line))
     trace_tmp.cleanup()
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -30,7 +30,7 @@ solver. Three ladders:
 is held against.
 
 The port's copy of ``karpenter_tpu/admission/`` (imports changed; the
-replay captures are left out, ROADMAP.md Queue 1 item 1).
+preemption probes record the ``preempt.dispatch`` replay capture).
 """
 
 from karpenter_tpu_torch.admission.plane import AdmissionPlane  # noqa: F401

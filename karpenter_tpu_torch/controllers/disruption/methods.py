@@ -14,8 +14,9 @@ The port's copy of ``karpenter_tpu/controllers/disruption/methods.py``
 ``TPUSolver``). Each ladder records its ``(site, rung, reason)`` verdict
 on the decision ledger (``disrupt.interruption``, ``consolidate.global``,
 ``probe.confirm``; obs/decisions.py) and its spans and anomalies on the
-flight recorder, at the JAX package's sites. Left out: the capsule seams
-(ROADMAP.md Queue 1 item 1).
+flight recorder, at the JAX package's sites; its probes record their
+replay captures through ``ops/consolidate.py`` (``global.dispatch``,
+``interruption.dispatch``).
 
 A device probe's own inexpressible shapes fall back to the sequential
 search as in the JAX package, and so does any host-side exception, which

@@ -67,8 +67,16 @@ The engine and route of the last dispatch are thread-local, as in the
 JAX package: the service drives one shared solver from concurrent
 threads.
 
-Not in this slice (see ROADMAP.md): the mesh and the speculative doubled
-dispatch (``_invoke_spec``, and so its ``solve.dispatch_spec`` span).
+The mesh route (``parallel/mesh.py``): on a solver whose device is CUDA
+with more than one card attached, a dispatch whose feasibility work
+``G·T·K·W`` reaches ``SHARD_MIN_WORK`` goes through
+``sharded_solve_host`` (engine ``mesh``, route ``("mesh", "ok")``), which
+records its own ``mesh.solve`` capture, so the ``solver.invoke`` capture is
+skipped there and one dispatch yields one capsule. On one card the mesh
+is degenerate and never taken.
+
+Not ported (see ROADMAP.md): the speculative doubled dispatch
+(``_invoke_spec``, and so its ``solve.dispatch_spec`` span).
 """
 
 from __future__ import annotations
@@ -116,6 +124,9 @@ from karpenter_tpu_torch.utils.envknobs import env_int, env_str
 NATIVE_CUTOFF_PODS = 192
 HOST_CUTOFF_PODS = 8
 DEVICE_MIN_WORK = 8192
+# feasibility work (G*T*K*W mask cells) above which a multi-device mesh
+# earns its overhead; single-card installs never shard
+SHARD_MIN_WORK = 1 << 21
 
 
 def capture_engine(engine: str) -> str:
@@ -256,6 +267,19 @@ class TorchSolver(Solver):
         # concurrent worker threads, and a tenant's replay capture stamped
         # with another tenant's engine would replay on the wrong rung
         self._eng_tls = threading.local()
+        self._mesh = None
+        self._mesh_checked = False
+
+    def _maybe_mesh(self):
+        """The device mesh when the solver's device is CUDA and more than
+        one card is attached (``parallel.make_mesh``); None otherwise."""
+        if not self._mesh_checked:
+            self._mesh_checked = True
+            if self.device.type == "cuda" and torch.cuda.device_count() > 1:
+                from karpenter_tpu_torch.parallel import make_mesh
+
+                self._mesh = make_mesh()
+        return self._mesh
 
     @property
     def _engine(self) -> str:
@@ -564,15 +588,18 @@ class TorchSolver(Solver):
                 time.perf_counter() - t0) * 1000.0
             # replay capsule (obs/capsule.py): this dispatch's exact
             # numpy inputs and host outputs by REFERENCE onto the open
-            # round trace (a doubled re-run overwrites — last wins)
-            capsule.record_capture(
-                "solver.invoke", args_np, host,
-                engine=capture_engine(self._engine),
-                rung=self._route[0] if self._route else None,
-                reason=self._route[1] if self._route else None,
-                max_bins=Bp, level_bits=p["level_bits"],
-                max_minv=p["max_minv"], family=f"{p['Gp']}x{p['Tp']}",
-                pallas=False)
+            # round trace (a doubled re-run overwrites — last wins). The
+            # mesh route skips here: sharded_solve_host captured the same
+            # dispatch at the mesh seam with the shard metadata replay needs
+            if self._route is None or self._route[0] != "mesh":
+                capsule.record_capture(
+                    "solver.invoke", args_np, host,
+                    engine=capture_engine(self._engine),
+                    rung=self._route[0] if self._route else None,
+                    reason=self._route[1] if self._route else None,
+                    max_bins=Bp, level_bits=p["level_bits"],
+                    max_minv=p["max_minv"], family=f"{p['Gp']}x{p['Tp']}",
+                    pallas=False)
             used = host["used"]
             grow = max_bins is None and bool(used[:B].all()) and B < bin_cap
             assign_e = host["assign_e"][:G, :E] if esnap is not None else None
@@ -606,8 +633,9 @@ class TorchSolver(Solver):
 
     def _dispatch(self, args_np, key, max_bins, upload=None):
         """One dispatch of a snapshot's numpy kernel arguments, routed by
-        the engine gates (``_native_reason``): the native engine, or the
-        device — uploaded with ``from_kernel_args`` (once per ``upload``
+        the engine gates (``_native_reason``): the native engine, the mesh
+        (``_maybe_mesh``, above ``SHARD_MIN_WORK``, on the numpy arguments),
+        or the device — uploaded with ``from_kernel_args`` (once per ``upload``
         dict, which a solve's doubled re-runs share) and run by
         ``_invoke``. ``key`` is the compile ledger's; its last two
         entries are ``level_bits`` and ``max_minv``. Returns the host
@@ -619,6 +647,19 @@ class TorchSolver(Solver):
             host = self._invoke_native(args_np, max_bins, reason)
             if host is not None:
                 return host
+        mesh = self._maybe_mesh()
+        G, K, W = args_np["g_mask"].shape
+        T = args_np["t_mask"].shape[0]
+        if mesh is not None and G * T * K * W >= SHARD_MIN_WORK:
+            from karpenter_tpu_torch.parallel import sharded_solve_host
+
+            # the shard-stage decomposition (shard.pad/tensorize/dispatch/
+            # block/merge leaves + the mesh.shard compile-ledger family)
+            # lives inside the parallel module
+            self._engine = "mesh"
+            self._route = ("mesh", "ok")
+            return sharded_solve_host(mesh, args_np, max_bins,
+                                      level_bits=key[-2])
         if upload is None:
             upload = {}
         if "args" not in upload:

@@ -10,9 +10,9 @@ ledger) from a running metrics server (``--url``), a saved snapshot
 ``replay`` re-executes a captured hot-path dispatch (obs/capsule.py) —
 a capsule the port or the JAX package wrote — and grades it against the
 capsule's recorded outputs; ``--ab`` additionally races the same capsule
-across every eligible rung (device / native / host-FFD; the mesh rungs
-report ineligible) and prints a parity + nodes + wall-clock + decision
-table. The device rung runs on the card unless ``--device cpu``. Exit
+across every eligible rung (partitioned / replicated / device / native /
+host-FFD) and prints a parity + nodes + wall-clock + decision table. The
+device and mesh rungs run on the card unless ``--device cpu``. Exit
 codes, the JAX package's: 0 parity exact, 1 parity mismatch or replay
 failure.
 

@@ -39,14 +39,17 @@ Capture seams (each one host-side hook per dispatch):
 - ``service.solve`` — service/solver_service.py (tenant-scoped).
 - ``relax.dispatch`` — ops/relax.py ``joint_relax_plan``: the padded LP
   tensors plus the standard counterfactual-row sidecars on one capture.
-- ``mesh.solve`` — the JAX package's mesh seam. The port has no mesh yet
-  (ROADMAP.md Queue 1, the mesh item): it loads such capsules, replays
-  their unsharded rung on the device rung, and reports the
-  ``partitioned``/``replicated`` rungs as ineligible.
+- ``mesh.solve`` — parallel/mesh.py ``sharded_solve_host`` (partitioned /
+  replicated / unsharded rungs, with the shard count).
 
 Replay (``python -m karpenter_tpu_torch.obs replay <capsule>``)
 re-executes the capture and grades it against the captured outputs:
-device captures re-run ``kernels.solve_step`` on the replay device
+partitioned mesh captures re-run ``partitioned_reference`` (the sequential
+one-device oracle that is bit-identical to the mesh execution) with the
+captured shard count and partition knobs, replicated ones the replicated
+program over a real multi-card mesh or else the plain ``solve_step``
+(bit-identical by that rung's contract), device captures re-run
+``kernels.solve_step`` on the replay device
 (``--device cpu`` for the plain path; CUDA by default), native captures
 the C++ engine, the row seams the port's ``dispatch_counterfactual_rows``
 (shared code, not a re-implementation), and relax captures the port's LP
@@ -127,9 +130,10 @@ _TLS = threading.local()
 _INDEX: deque = deque(maxlen=64)
 STATS = {"captures": 0, "writes": 0, "skipped_bytes": 0}
 
-# the mesh slice of the port (ROADMAP.md Queue 1) brings these two rungs
-_MESH_ITEM = ("the port has no mesh yet (ROADMAP.md Queue 1, the mesh "
-              "item): the {} rung is ineligible")
+# knobs from the captured env snapshot that replay re-applies around the
+# mesh rungs: they decide whether/how the snapshot partitions, so a dev
+# box with different settings must still reproduce the captured plan
+_REPLAY_ENV = ("KARPENTER_SHARD_PARTITION", "KARPENTER_SHARD_REPAIR_MAX")
 
 
 class ReplayError(RuntimeError):
@@ -435,6 +439,20 @@ def load(path: str) -> Capsule:
 # replay engines
 # ---------------------------------------------------------------------------
 
+_OUT_KEYS = ("assign", "assign_e", "used", "tmpl", "F")
+
+
+class _applied_env(envknobs.applied_env):
+    """Temporarily apply the capture-time values of selected env knobs
+    (mesh partition/repair) so replay reproduces the captured plan — the
+    save/apply/restore machinery lives with the other env-knob semantics
+    in utils/envknobs.py, the one module of the port that touches the
+    process environment."""
+
+    def __init__(self, cap: Capsule, names=_REPLAY_ENV):
+        super().__init__(cap.meta.get("env") or {}, names)
+
+
 # seams whose capture is the chunked counterfactual-row dispatch (shared
 # replay body `_run_probe`): the per-candidate probe, the preemption
 # counterfactual, the global joint consolidation ladder, and the
@@ -482,7 +500,7 @@ def _run_device(cap: Capsule, device) -> dict:
     max_bins = int(cap.static("max_bins"))
     level_bits = int(cap.static("level_bits", 20))
     if cap.seam == "mesh.solve":
-        # the JAX package's unsharded mesh rung read max_minv off the args
+        # the unsharded mesh rung reads max_minv off the args
         max_minv = (int(np.asarray(args["m_minv"]).max())
                     if "m_minv" in args else 0)
     else:
@@ -501,12 +519,51 @@ def _run_native(cap: Capsule, device=None) -> dict:
     return native.solve_step(cap.args(), int(cap.static("max_bins")))
 
 
+def _replay_n_shards(cap: Capsule) -> int:
+    n = cap.static("n_shards")
+    if n:
+        return int(n)
+    import torch
+
+    return max(torch.cuda.device_count(), 2)
+
+
 def _run_partitioned(cap: Capsule, device=None) -> dict:
-    raise ReplayError(_MESH_ITEM.format("partitioned"))
+    from karpenter_tpu_torch.parallel.mesh import partitioned_reference
+
+    with _applied_env(cap):
+        merged = partitioned_reference(
+            cap.args(), int(cap.static("max_bins")), _replay_n_shards(cap),
+            level_bits=int(cap.static("level_bits", 20)),
+            device=_replay_device(device))
+    if merged is None:
+        raise ReplayError(
+            "snapshot does not partition here (plan refused or repair "
+            "overflow) — the partitioned rung is ineligible")
+    return {k: np.asarray(v) for k, v in merged.items() if k in _OUT_KEYS}
 
 
 def _run_replicated(cap: Capsule, device=None) -> dict:
-    raise ReplayError(_MESH_ITEM.format("replicated"))
+    """The replicated rung offline: over a real >1-card mesh when the
+    replay device is CUDA and more than one card is attached, else the
+    plain unsharded ``solve_step`` on the replay device — bit-identical by
+    the replicated program's contract (parallel/mesh.py)."""
+    import torch
+
+    from karpenter_tpu_torch.parallel.mesh import (
+        _replicated_solve,
+        _to_host,
+        make_mesh,
+    )
+
+    dev = _replay_device(device)
+    if dev.type == "cuda" and torch.cuda.device_count() > 1:
+        args = cap.args()
+        out = _replicated_solve(
+            make_mesh(), args, int(cap.static("max_bins")),
+            level_bits=int(cap.static("level_bits", 20)))
+        return _to_host(out, _OUT_KEYS)
+    return _run_device(cap, dev)
 
 
 def _run_probe(cap: Capsule, engine: str, device=None) -> dict:
@@ -603,59 +660,6 @@ def _run_relax_host(cap: Capsule, device=None) -> dict:
 # the host-FFD reference (the A/B ladder's bottom rung)
 # ---------------------------------------------------------------------------
 
-_EPS = 1e-6
-
-
-def _partition_blockers(args: dict) -> str | None:
-    """Why this snapshot has cross-group coupling the host-FFD rung does
-    not model (None = eligible): existing nodes and finite limits are
-    mutable global accumulators, minValues/single-bin change the new-bin
-    rule, and topology classes are cross-group bin state. The JAX
-    package's ``parallel/mesh.py`` ``_partition_blockers``, copied."""
-    from karpenter_tpu_torch.ops.tensorize import SPREAD_OWNED_MIN
-
-    if "e_avail" in args:
-        return "existing-nodes"
-    mm = args.get("m_minv")
-    if mm is not None and np.asarray(mm).size and int(np.asarray(mm).max()) > 0:
-        return "min-values"
-    if np.isfinite(np.asarray(args["m_limits"])).any():
-        return "nodepool-limits"
-    # per-group checks look only at ACTIVE rows: padded rows place no pods
-    active = np.asarray(args["g_count"]) > 0
-    gs = args.get("g_single")
-    if gs is not None and np.asarray(gs)[active].any():
-        return "single-bin-groups"
-    for k in ("g_decl", "g_match", "g_aneed", "g_amatch"):
-        v = args.get(k)
-        if v is not None and np.asarray(v)[active].any():
-            return "topology-classes"
-    sown = args.get("g_sown")
-    if sown is not None and np.asarray(sown).size and (
-        np.asarray(sown)[active] < SPREAD_OWNED_MIN
-    ).any():
-        return "topology-classes"
-    return None
-
-
-def _tmpl_full_rows(args: dict, g: int) -> np.ndarray:
-    """[M] bool — host mirror of the kernel's tmpl_full row for group g
-    (taints/custom-label admission AND template requirement overlap with
-    the Intersects tolerance rule). The JAX package's
-    ``parallel/mesh.py`` ``_tmpl_full_rows``, copied."""
-    g_mask = np.asarray(args["g_mask"])[g]
-    g_has = np.asarray(args["g_has"])[g]
-    m_mask = np.asarray(args["m_mask"])
-    m_has = np.asarray(args["m_has"])
-    both = m_has & g_has[None, :]
-    ov = ((m_mask & g_mask[None, :, :]) != 0).any(axis=2)
-    g_tol = args.get("g_tol")
-    m_tol = args.get("m_tol")
-    if g_tol is not None and m_tol is not None:
-        ov = ov | (np.asarray(m_tol) & np.asarray(g_tol)[g][None, :])
-    return np.asarray(args["g_tmpl_ok"])[g] & (~both | ov).all(axis=1)
-
-
 def _host_feasibility(args: dict) -> np.ndarray:
     """[G,T] bool — numpy mirror of the kernel's group-vs-type feasibility
     (requirement overlap with the Intersects tolerance rule, plus one
@@ -704,7 +708,14 @@ def _run_host_ffd(cap: Capsule, device=None) -> dict:
     reference algorithm's stance (groups in FFD order, each pod lands on
     the first open bin with a surviving compatible type, new bins open
     from the weight-best template). Informational — the A/B table's
-    oracle row; identical-pod groups place in batches."""
+    oracle row; identical-pod groups place in batches exactly like the
+    mesh repair pass, so the math mirrors ``_repair_merged``."""
+    from karpenter_tpu_torch.parallel.mesh import (
+        _EPS,
+        _partition_blockers,
+        _tmpl_full_rows,
+    )
+
     args = cap.args()
     blocker = _partition_blockers(args)
     if blocker is not None:

@@ -3,8 +3,8 @@
 The port's copy of ``karpenter_tpu/obs/decisions.py`` (imports changed).
 The port's engine rung is ``device`` where the JAX package's is ``xla``,
 in the same ladder position of ``solver.route``, so ``rung-regression``
-compares the same order. ``mesh.partition`` keeps its enum but has no
-producer until the mesh is ported (ROADMAP.md Queue 1).
+compares the same order. ``mesh.partition`` is recorded by the mesh
+(``parallel/mesh.py sharded_solve``), one verdict per call.
 
 The flight recorder (obs/trace.py) made *time* observable and the device
 plane (obs/devplane.py) made *compiles and padding* observable; this
@@ -39,8 +39,8 @@ bounded: an unknown reason clamps to ``"other"`` instead of minting a new
 series (``canonical_reason``). Unknown sites/rungs raise — they are code
 constants, and a typo must fail tests, not mint a series. (The JAX
 package checks every producer's literal reason against ``SITES`` with
-graftlint's GL502; the port's static analysis is ROADMAP.md Queue 1
-item 4.)
+graftlint's GL502, and the port's own graftlint,
+``karpenter_tpu_torch/analysis``, checks the port's the same way.)
 
 Every record also:
 

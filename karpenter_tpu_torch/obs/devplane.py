@@ -6,8 +6,7 @@ and static parameters), so one dispatch sequence gives the same cold and
 warm verdicts in both packages. On the card no XLA compile stands behind
 a cold key: its seconds are the first dispatch — CUDA's first use and,
 once per process, the build or load of ``csrc/compat.cu``. The
-``record_shard_*`` functions have no producer until the mesh is ported
-(ROADMAP.md Queue 1 item 3).
+``record_shard_*`` functions are fed by the mesh (``parallel/mesh.py``).
 
 The flight recorder (obs/trace.py) explains where a round's *host* wall
 clock goes; this module covers the three blind spots the device plane

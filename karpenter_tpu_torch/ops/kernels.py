@@ -673,8 +673,10 @@ def solve_step(args: dict, max_bins: int, with_existing: bool | None = None,
     dict plus ``F`` and ``price``. ``fma_rem=False`` is the rule of the
     reference's batched solve (module docstring)."""
     if max_minv is None:
-        # host read of an input, before any device work is queued
         mv = args.get("m_minv")
+        # graftlint: disable=GL101 -- the minValues width sizes the pack's
+        # state: a host read of an input before any device work is queued
+        # (every dispatch site passes max_minv)
         max_minv = int(mv.max()) if mv is not None and mv.numel() else 0
     if with_existing is None:
         with_existing = "e_avail" in args

@@ -21,8 +21,9 @@ tier-major for the fused admission round. Every build and delta opens a
 ``tensorize.existing``, ``tensorize.delta``); a clamped negative
 availability counts on ``karpenter_tensorize_negative_avail_total`` and
 marks the round with the ``negative-avail`` anomaly; the tier split's
-extra rows record as the ``solve.tiers`` padding site. Left out of this
-copy (ROADMAP.md Queue 1 item 3): the mesh's ``shard_view``.
+extra rows record as the ``solve.tiers`` padding site. ``shard_view``
+slices the group axis for the mesh's per-shard bundles
+(``parallel/mesh.py``).
 
 Group-row cache contract (as in the original): ``tensorize`` caches each
 group's packed requirement rows keyed on (pod scheduling signature, waves
@@ -104,6 +105,39 @@ def pad_to(a: np.ndarray, shape: tuple, fill=0) -> np.ndarray:
     """Zero- (or fill-) pad `a` up to `shape` (prefix slices preserved)."""
     out = np.full(shape, fill, dtype=a.dtype) if fill else np.zeros(shape, dtype=a.dtype)
     out[tuple(slice(0, s) for s in a.shape)] = a
+    return out
+
+
+# every solve-arg tensor that rides the group (G) axis on its leading dim —
+# the slicing vocabulary for the partitioned mesh solve's per-shard bundle
+# views (parallel/mesh.py) and the one list a new group-axis tensor family
+# must join to reach the shards. ge_ok is [G,E]: group-axis leading, so it
+# slices here too (the partitioned path never sees it — existing nodes are
+# a partition blocker — but the view helper stays total).
+GROUP_AXIS_KEYS = frozenset({
+    "g_mask", "g_has", "g_tol", "g_demand", "g_count", "g_zone_allowed",
+    "g_ct_allowed", "g_tmpl_ok", "g_bin_cap", "g_single", "g_decl",
+    "g_match", "g_sown", "g_smatch", "g_aneed", "g_amatch", "g_tier",
+    "ge_ok",
+})
+
+
+def shard_view(args: dict, lo: int, hi: int, g_pad: int) -> dict:
+    """Per-shard bundle view of a solve arg dict: group-axis tensors are
+    sliced to [lo:hi) and zero-padded to ``g_pad`` rows; type/template
+    tensors pass through BY REFERENCE (they are shard-invariant, so the
+    host pays no copy per shard — placement happens at upload time).
+    Zero padding is inert by the kernels' padded-row contract: count 0
+    rows never take, a zero g_sown row only gates itself."""
+    out = {}
+    for k, v in args.items():
+        if k in GROUP_AXIS_KEYS:
+            a = np.asarray(v)[lo:hi]
+            if a.shape[0] != g_pad:
+                a = pad_to(a, (g_pad,) + a.shape[1:])
+            out[k] = a
+        else:
+            out[k] = v
     return out
 
 

@@ -593,16 +593,14 @@ def spot_storm(n_nodes=1000, lam=2.0, rounds=10, rate=0.25, step=30.0,
     fleet stands, before the storm. Returns the leg's counts and end
     state; ``run_spot``'s fleet-ledger reconciliation block (its ``ledger``
     keys) is left out."""
-    import os
     import random
 
     from karpenter_tpu_torch.cloudprovider.chaos import ChaosCloud
     from karpenter_tpu_torch.operator import metrics as m
-    from karpenter_tpu_torch.utils.envknobs import env_str
+    from karpenter_tpu_torch.utils.envknobs import applied_env
 
-    prior = env_str("KARPENTER_SPOT_RISK_LAMBDA")
-    os.environ["KARPENTER_SPOT_RISK_LAMBDA"] = str(lam)
-    try:
+    with applied_env({"KARPENTER_SPOT_RISK_LAMBDA": str(lam)},
+                     ("KARPENTER_SPOT_RISK_LAMBDA",)):
         env = spot_env(n_nodes, solver=solver)
         if on_env is not None:
             on_env(env)
@@ -659,11 +657,6 @@ def spot_storm(n_nodes=1000, lam=2.0, rounds=10, rate=0.25, step=30.0,
                 m.INTERRUPTION_DEADLINE_DEGRADATIONS, "").total()),
             "env": env,
         }
-    finally:
-        if prior is None:
-            os.environ.pop("KARPENTER_SPOT_RISK_LAMBDA", None)
-        else:
-            os.environ["KARPENTER_SPOT_RISK_LAMBDA"] = prior
 
 
 def spot_gates(aware: dict, blind: dict, n_nodes: int) -> dict:
@@ -720,6 +713,7 @@ def solver_server(device=None, env=None, log=None):
         _METHOD_REGISTER,
         _pack,
     )
+    from karpenter_tpu_torch.utils.envknobs import inherited_env
 
     def _free_port() -> int:
         sock = socket.socket()
@@ -729,7 +723,7 @@ def solver_server(device=None, env=None, log=None):
         return port
 
     grpc_port, metrics_port = _free_port(), _free_port()
-    child_env = dict(os.environ)
+    child_env = inherited_env()
     child_env.setdefault("KARPENTER_COALESCE_WINDOW_MS", "4")
     child_env.update(env or {})
     argv = [sys.executable, "-m", "karpenter_tpu_torch.service.solver_service",

@@ -8,10 +8,9 @@ dump, ``KARPENTER_CAPSULE`` forces or disables capture, the schema
 round-trips and refuses a newer version, the byte budget refuses an
 oversized capture, device / native / probe / service captures replay
 ``exact`` (the device rung with ``device="cpu"``), the A/B table lists
-every rung, and the CLI returns the JAX package's exit codes. The
-mesh cases wait for the mesh slice (ROADMAP.md Queue 1); here a JAX mesh
-capsule replays on the port's device rung and the port's table names the
-two mesh rungs ineligible.
+every rung, and the CLI returns the JAX package's exit codes. A JAX mesh
+capsule replays on the port's mesh rungs (``tests/test_torch_mesh.py``
+holds every rung's capsule in both directions).
 
 Across the packages, at every seam the port captures (``solver.invoke``,
 ``probe.dispatch``, ``global.dispatch``, ``relax.dispatch``,
@@ -397,7 +396,9 @@ class TestReplayParity:
     def test_host_ffd_rung_reports_in_ab(self, rec, tmp_path):
         """The A/B ladder's bottom rung: the pure-numpy FFD oracle is
         eligible on a plain snapshot, deterministic, and lands every pod
-        the kernel landed; the mesh rungs report why they are not here."""
+        the kernel landed; a one-group snapshot does not partition (the
+        partitioned rung says why) and the replicated rung, on one device,
+        runs the plain kernel exactly."""
         solve_capturing()
         path = capsule.write_capsule(
             capsule.last_capture(),
@@ -406,9 +407,9 @@ class TestReplayParity:
         rows = {r["rung"]: r for r in capsule.ab_compare(cap, device="cpu")}
         assert list(rows) == ["partitioned", "replicated", "device",
                               "native", "host"]
-        for rung in ("partitioned", "replicated"):
-            assert rows[rung]["eligible"] is False
-            assert "mesh" in rows[rung]["why"]
+        assert rows["partitioned"]["eligible"] is False
+        assert "partition" in rows["partitioned"]["why"]
+        assert rows["replicated"]["parity"] == "exact"
         host = rows["host"]
         assert host.get("eligible") and host["nodes"] is not None
         a = capsule._run_host_ffd(cap)
@@ -422,8 +423,10 @@ class TestReplayParity:
 
     def test_jax_mesh_capsule_on_the_port(self, tmp_path, monkeypatch):
         """A JAX replicated-rung capture (the partition kill-switched)
-        replays exactly on the port's device rung; its own rung and the
-        partitioned one are ineligible here until the mesh slice."""
+        replays exactly on the port's replicated rung (the capsule's env
+        snapshot keeps the kill-switch around the replay) and on its
+        device rung; the partitioned rung refuses the plan under the
+        capsule's own env."""
         import __graft_entry__ as graft
         from karpenter_tpu import obs as jobs
         from karpenter_tpu.parallel import make_mesh, sharded_solve_host
@@ -445,12 +448,13 @@ class TestReplayParity:
             jobs.reset()
         cap = capsule.load(path)
         assert cap.seam == "mesh.solve"
-        with pytest.raises(capsule.ReplayError, match="mesh"):
-            capsule.replay(cap, device="cpu")
+        rep = capsule.replay(cap, device="cpu")
+        assert rep["parity"] == "exact" and rep["rung"] == "replicated"
         assert capsule.replay(cap, rung="device",
                               device="cpu")["parity"] == "exact"
+        monkeypatch.delenv("KARPENTER_SHARD_PARTITION")
         rows = {r["rung"]: r for r in capsule.ab_compare(cap, device="cpu")}
-        assert rows["replicated"]["eligible"] is False
+        assert rows["replicated"]["parity"] == "exact"
         assert rows["partitioned"]["eligible"] is False
         assert rows["device"]["parity"] == "exact"
 
@@ -674,3 +678,59 @@ def test_seam_captures_match_and_cross_replay(seam, captured, rec, tmp_path,
     # and each replays its own exactly
     assert capsule.replay(capsule.load(tpath),
                           device="cpu")["parity"] == "exact"
+
+
+# ---------------------------------------------------------------------------
+# the mesh seam: each rung captured by both packages, replayed across
+# ---------------------------------------------------------------------------
+
+
+def _mesh_of(pkg, rung):
+    """A mesh for ``rung``: the JAX package's 8 virtual devices (one for
+    the unsharded rung), the port's logical CPU mesh of the same shape."""
+    import jax
+    from jax.sharding import Mesh
+
+    from karpenter_tpu.parallel import make_mesh
+    from karpenter_tpu_torch.parallel.mesh import logical_mesh
+
+    if rung == "unsharded":
+        if pkg == JAX:
+            return Mesh(np.array(jax.devices()[:1]).reshape(1, 1),
+                        ("data", "model"))
+        return logical_mesh((1, 1), "cpu")
+    if pkg == JAX:
+        return make_mesh(8)
+    return logical_mesh((4, 2), "cpu")
+
+
+@pytest.mark.parametrize("rung", ["partitioned", "replicated", "unsharded"])
+def test_mesh_captures_match_and_cross_replay(rung, captured, rec, tmp_path,
+                                              monkeypatch):
+    """Each mesh rung's ``mesh.solve`` capture: the port's record equals
+    the JAX package's, a JAX capsule replays ``exact`` on the port's rung
+    of the same name (``device`` for the unsharded rung) and a port
+    capsule on the JAX package's (``xla``)."""
+    from tests.test_torch_mesh import wide
+
+    if rung == "replicated":
+        monkeypatch.setenv("KARPENTER_SHARD_PARTITION", "0")
+    for pkg in (JAX, PORT):
+        _, args = wide(pkg, n_groups=32, n_types=16, seed=3)
+        mod(pkg, "parallel").sharded_solve_host(_mesh_of(pkg, rung), args, 64)
+    want = [r for r in captured[JAX] if r["seam"] == "mesh.solve"]
+    got = [r for r in captured[PORT] if r["seam"] == "mesh.solve"]
+    assert len(want) == len(got) == 1
+    _same_capture(want[0], got[0])
+    assert got[0]["meta"]["engine"] == rung
+    jpath = jcapsule.write_capsule(want[0], path=str(tmp_path / "j.capsule.npz"),
+                                   why="forced")
+    tpath = capsule.write_capsule(got[0], path=str(tmp_path / "t.capsule.npz"),
+                                  why="forced")
+    monkeypatch.delenv("KARPENTER_SHARD_PARTITION", raising=False)
+    mine = capsule.replay(capsule.load(jpath), device="cpu")
+    assert mine["parity"] == "exact", mine
+    assert mine["rung"] == {"unsharded": "device"}.get(rung, rung)
+    theirs = jcapsule.replay(jcapsule.load(tpath))
+    assert theirs["parity"] == "exact", theirs
+    assert theirs["rung"] == {"unsharded": "xla"}.get(rung, rung)

@@ -10,9 +10,9 @@ cache, an ``Environment``) run the package's own producer: ``TPUSolver``
 for the JAX package, ``TorchSolver(device="cpu")`` for the port, whose
 engine rung is named ``device`` where the JAX package's is ``xla``.
 
-Left to their JAX files: the mesh cases (``mesh.partition`` and the
-``mesh.shards`` pad site: the mesh is not ported) and the GL502 producer
-census (the port's static analysis is not ported). The solver-service
+Elsewhere: the mesh cases (``mesh.partition`` and the ``mesh.shards`` pad
+site) are in ``tests/test_torch_mesh.py`` and the GL502 producer census in
+``tests/test_torch_analysis.py``. The solver-service
 cases (``session.sync``) are in ``tests/test_torch_service.py`` and the
 replay cases in ``tests/test_torch_capsule.py``; pinned below, ``python
 -m karpenter_tpu_torch.obs replay`` returns the JAX package's exit code
