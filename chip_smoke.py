@@ -236,6 +236,33 @@ It imports nothing of JAX or of ``karpenter_tpu``.
    G×M and 1×budget and a replicated block's G×T join the compat cases.
    One ``{"mesh": ...}`` line.
 
+16. The solve's dispatch path (``models/solver.py``), the dispatch
+   phase, which runs right after phase 5 (late in a process that has
+   profiled for minutes CUPTI drops records, and the phase counts
+   compat's), with routing off: the headline (phase 3's batch, cloned) under
+   ``KARPENTER_PROFILE_DIR`` must write one Chrome trace per dispatch
+   holding CUDA kernel events, compat's symbol among them 2 + Gp times
+   (taken again, up to three times, when the trace drops its records),
+   with the claims of an unprofiled solve of the same batch; the walls
+   with and without the profiler, the trace's size and its kernel events
+   beside ``solve_step_trace``'s are printed. A one-pod-per-node burst of
+   2,600 pods (``KARPENTER_RELAX=0``: the demand bound sizes the bin
+   axis at 2,048, the solve doubles it once to 4,096) on one
+   ``TorchSolver()``, three pairs of a cold solve (the doubled family
+   forgotten first: the doubled dispatch is deferred) and a warm one (it
+   speculates once, ``solve.dispatch_spec``), alternating which runs
+   first; each grows once, launches compat (2 + Gp) x 2 times and equals
+   ``TorchSolver(device="cpu")``'s claims. An exact fit of 2,400 pods of
+   5.2 cpu and 1,880 of 0.1 cpu on the same type, in as many pairs: its
+   2,400-bin axis runs dry with no pod left over, so the warm solve's
+   speculation at 4,096 is launched and thrown away (compat (2 + Gp) x 2)
+   while the cold one dispatches once; both equal the CPU's claims.
+   ``KARPENTER_DECODE_EXACT_SKIP`` at 0 and at 1 over the 96-pod selector
+   mix and the headline: the card's ``decode.recheck`` verdicts, exact
+   skips and claims equal the CPU plain path's. The compat products of
+   the burst, the exact fit and the mix (G×T, G×M and a 1×Bp per bin axis
+   they dispatch) join the compat cases. One ``{"dispatch": ...}`` line.
+
 ``python3 chip_smoke.py --full-storm [N]`` runs only the storm at
 ``perf/run.py``'s size (N 1,000) with the ladder on, round by round.
 
@@ -244,7 +271,8 @@ Prints one ``{"kernels": [...]}`` line, one ``{"solve": ...}`` line, one
 ``{"operator": ...}`` line, one ``{"admission": ...}`` line, one
 ``{"spot": ...}`` line, one ``{"engines": ...}`` line, one ``{"obs": ...}``
 line, one ``{"capsule": ...}`` line, one ``{"service": ...}`` line, one
-``{"mesh": ...}`` line, the card line, and as its last line ``{"ok":
+``{"mesh": ...}`` line, one ``{"dispatch": ...}`` line, the card line, and
+as its last line ``{"ok":
 true, "device": {...}}``. Any
 failure raises and exits non-zero; so does a machine without CUDA.
 """
@@ -3579,6 +3607,371 @@ def mesh_phase(args_np, max_bins, level_bits, head_nodes, kernels,
     return line, launches, cases
 
 
+# the dispatch phase: a one-pod-per-node burst whose demand bound sizes
+# the bin axis short (about half a node per pod, 1.5x headroom: 2,019
+# bins, bucketed to 2,048), so the solve doubles it once (4,038, bucketed
+# to 4,096, the cap); and the selector mix of
+# tests/test_partitioned_mesh.py, whose bins host several groups
+BURST_PODS = 2_600
+BURST_BP2 = 4_096
+BURST_PAIRS = 3
+SKIP_MIX_PODS = 96
+# the exact fit: 2,400 pods of 5.2 cpu (one per node) and 1,880 of 0.1 cpu
+# that fill the gaps, on the burst's type; the demand bound is 1,600 nodes
+# (12,668 cpu over 7.92 allocatable), so the axis is 2,400, every bin is
+# used and no pod is left over: the doubled axis (4,096, the burst's family)
+# is dispatched and not needed
+FIT_BIG, FIT_SMALL = 2_400, 1_880
+
+
+def one_per_node(n: int) -> tuple:
+    """n pods of 4.1 cpu on one 8-cpu type (``tests/test_torch_solver.py``'s
+    ``_one_per_node``): one pod per node."""
+    from karpenter_tpu_torch.api.nodepool import NodePool
+    from karpenter_tpu_torch.api.objects import ObjectMeta, Pod
+    from karpenter_tpu_torch.cloudprovider.catalog import make_instance_type
+    from karpenter_tpu_torch.models.inflight import ClaimTemplate
+
+    pods = [Pod(metadata=ObjectMeta(name=f"w{i}"),
+                requests={"cpu": 4.1, "memory": 2**30}) for i in range(n)]
+    pool = NodePool(metadata=ObjectMeta(name="default"))
+    return pods, [ClaimTemplate(pool)], {
+        "default": [make_instance_type("big", 8, 32)]}
+
+
+def exact_fit(big: int, small: int) -> tuple:
+    """``big`` pods of 5.2 cpu and ``small`` pods of 0.1 cpu on
+    ``one_per_node``'s type: one big pod per node, the small ones in the
+    gaps."""
+    from karpenter_tpu_torch.api.nodepool import NodePool
+    from karpenter_tpu_torch.api.objects import ObjectMeta, Pod
+    from karpenter_tpu_torch.cloudprovider.catalog import make_instance_type
+    from karpenter_tpu_torch.models.inflight import ClaimTemplate
+
+    pods = [Pod(metadata=ObjectMeta(name=f"b{i}"),
+                requests={"cpu": 5.2, "memory": 2**30}) for i in range(big)]
+    pods += [Pod(metadata=ObjectMeta(name=f"s{i}"),
+                 requests={"cpu": 0.1, "memory": 2**20}) for i in range(small)]
+    pool = NodePool(metadata=ObjectMeta(name="default"))
+    return pods, [ClaimTemplate(pool)], {
+        "default": [make_instance_type("big", 8, 32)]}
+
+
+def solve_cases(label, inputs, solver, Bps, kernels) -> list:
+    """The compat products a solve of ``inputs`` launches on the card at
+    its plan's Gp, Tp: G×T, G×M and a 1×Bp for each bin axis in ``Bps``."""
+    import torch
+
+    from karpenter_tpu_torch.ops.tensorize import kernel_args, tensorize
+
+    snap = tensorize(*inputs)
+    plan = solver.plan(snap)
+    args = kernels.from_kernel_args(
+        kernel_args(snap, Gp=plan["Gp"], Tp=plan["Tp"]), torch.device("cuda"))
+    gt = [args[k] for k in ("g_mask", "g_has", "g_tol",
+                            "t_mask", "t_has", "t_tol")]
+    return [(f"{label} GxT", gt),
+            (f"{label} GxM",
+             gt[:3] + [args[k] for k in ("m_mask", "m_has", "m_tol")]),
+            *((f"{label} 1x{Bp}", bins_case(args, snap.G, Bp, kernels))
+              for Bp in Bps)]
+
+
+def selector_mix(n: int) -> tuple:
+    """``tests/test_torch_solver.py``'s ``selector_mix``: n pods of four
+    sizes under no selector or one of two arch selectors, over fresh
+    ``benchmark_catalog(24)`` objects."""
+    from karpenter_tpu_torch.api import labels as wk
+    from karpenter_tpu_torch.api.nodepool import NodePool
+    from karpenter_tpu_torch.api.objects import ObjectMeta, Pod
+    from karpenter_tpu_torch.cloudprovider.catalog import benchmark_catalog
+    from karpenter_tpu_torch.models.inflight import ClaimTemplate
+
+    sizes = [(0.25, 0.5), (0.5, 1.0), (0.75, 1.5), (1.0, 2.0)]
+    sels = [{}, {wk.ARCH_LABEL: "amd64"}, {wk.ARCH_LABEL: "arm64"}]
+    pods = [Pod(metadata=ObjectMeta(name=f"p{i}"),
+                requests={"cpu": sizes[i % 4][0],
+                          "memory": sizes[i % 4][1] * 2**30},
+                node_selector=dict(sels[i % 3])) for i in range(n)]
+    pool = NodePool(metadata=ObjectMeta(name="default"))
+    return pods, [ClaimTemplate(pool)], {"default": benchmark_catalog(24)}
+
+
+def claims_of(res) -> list:
+    """A result's claims in order: pool, pod names, instance-type names."""
+    return [(c.template.nodepool_name, sorted(p.name for p in c.pods),
+             sorted(it.name for it in c.instance_types))
+            for c in res.new_claims]
+
+
+def decided(solver, inputs) -> dict:
+    """One solve: its ``decode.recheck`` verdicts, exact skips, claims,
+    decode ms and wall ms."""
+    import torch
+
+    from karpenter_tpu_torch.obs import decisions
+    from karpenter_tpu_torch.ops.tensorize import STATS
+
+    c0, s0 = decisions.counts(), STATS["decode_exact_skips"]
+    t0 = time.perf_counter()
+    res = solver.solve(*inputs)
+    if solver.device.type == "cuda":
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    verdicts = {}
+    for (site, rung, reason), n in decisions.counts().items():
+        d = n - c0.get((site, rung, reason), 0)
+        if site == "decode.recheck" and d:
+            verdicts[f"{rung}/{reason}"] = d
+    return {"verdicts": verdicts,
+            "exact_skips": STATS["decode_exact_skips"] - s0,
+            "claims": claims_of(res), "nodes": res.node_count(),
+            "decode_ms": solver.last_device_stats["decode_ms"],
+            "bins": solver.last_device_stats["bins"],
+            "Gp": solver.last_device_stats["Gp"], "wall_ms": wall_ms}
+
+
+def dispatch_phase(solver, pods, templates, its, step_kernels, kernels,
+                   cuda_kernels, workdir: Path) -> tuple:
+    """The three pieces of the solve's dispatch path on the card, with
+    routing off: the headline under ``KARPENTER_PROFILE_DIR`` (one Chrome
+    trace, holding CUDA kernel events and compat's symbol 2 + Gp times;
+    the claims of an unprofiled solve of the same batch); the
+    one-pod-per-node burst on one ``TorchSolver()`` (``KARPENTER_RELAX=0``,
+    so the estimate is the demand bound and runs dry once), in
+    ``BURST_PAIRS`` pairs of a cold solve (the doubled family forgotten
+    first: the doubled dispatch is deferred) and a warm one (it
+    speculates once, ``solve.dispatch_spec``), alternating which runs
+    first; every solve grows once, launches compat (2 + Gp) x 2 times and
+    equals ``TorchSolver(device="cpu")``'s claims; the exact fit
+    (``exact_fit``) in as many pairs: its axis runs dry with no pod left
+    over, so the warm leg's speculation is thrown away (compat
+    (2 + Gp) x 2) and the cold leg dispatches once (2 + Gp); and
+    ``KARPENTER_DECODE_EXACT_SKIP`` at 0 and 1 over the selector mix and
+    the headline, fresh objects per solve, card = CPU in verdicts, exact
+    skips and claims. Returns the ``{"dispatch": ...}`` line, the path's
+    launches and the compat cases of the burst, the exact fit and the mix
+    at the shapes their solves launch."""
+    import torch
+
+    from karpenter_tpu_torch import obs
+    from karpenter_tpu_torch.models import TorchSolver
+    from karpenter_tpu_torch.models import solver as msolver
+    from karpenter_tpu_torch.ops.tensorize import tensorize
+    from karpenter_tpu_torch.workload import build_workload
+
+    launches = {"compat": 0}
+
+    def counted(fn):
+        cuda_kernels.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        launches["compat"] += cuda_kernels.LAUNCHES["compat"]
+        return out, cuda_kernels.LAUNCHES["compat"]
+
+    # ---- the headline under the profiler ----
+    def headline():
+        t0 = time.perf_counter()
+        res = solver.solve([p.clone() for p in pods], templates, its)
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    (res0, plain_ms), _ = counted(headline)
+    st = solver.last_device_stats
+    n_dispatch = 1 + st.get("bin_growths", 0)
+    expected = (2 + st["Gp"]) * n_dispatch
+    attempts = []
+    for attempt in range(3):
+        # a trace can come back without the ctypes-launched kernel's
+        # records (seen in device_times): taken again, up to three times
+        directory = workdir / f"profile-{attempt}"
+        with env_knobs(KARPENTER_PROFILE_DIR=str(directory)):
+            (res, prof_ms), n_compat = counted(headline)
+        traces = sorted(directory.glob("*.pt.trace.json"))
+        check(len(traces) == n_dispatch,
+              f"dispatch: {len(traces)} traces for {n_dispatch} dispatches")
+        events = [ev for path in traces
+                  for ev in json.loads(path.read_text())["traceEvents"]]
+        kern = [ev for ev in events if ev.get("cat") == "kernel"]
+        in_trace = sum("compat_kernel" in ev.get("name", "") for ev in kern)
+        attempts.append({"wall_ms": prof_ms, "events": len(events),
+                         "kernel_events": len(kern),
+                         "compat_in_trace": in_trace,
+                         "compat_launches": n_compat,
+                         "trace_bytes": sum(p.stat().st_size
+                                            for p in traces)})
+        check(n_compat == expected,
+              f"dispatch: profiled headline compat launches {n_compat} "
+              f"!= {expected}")
+        check(claims_of(res) == claims_of(res0),
+              "dispatch: the profiled headline's claims differ")
+        if in_trace == expected:
+            break
+    check(kern, "dispatch: the profiled headline's trace holds no CUDA "
+                "kernel event")
+    check(in_trace == expected,
+          f"dispatch: compat in the trace {[a['compat_in_trace'] for a in attempts]}"
+          f" != 2 + Gp per dispatch ({expected})")
+    profiled = {"plain_wall_ms": plain_ms, "attempts": attempts,
+                "solve_step_trace_kernels": step_kernels,
+                "nodes": res0.node_count(), "compat_expected": expected}
+
+    # ---- the growth burst: cold (deferred) and warm (speculated) ----
+    # in BURST_PAIRS pairs, alternating which leg runs first; a cold leg
+    # forgets the doubled family first
+    burst = {"cold": [], "warm": []}
+    saved = set(msolver._WARM_FAMILIES)
+    msolver._WARM_FAMILIES.clear()
+    with env_knobs(KARPENTER_RELAX="0"):
+        card = TorchSolver()
+        cpu = TorchSolver(device="cpu")
+        want = claims_of(cpu.solve(*one_per_node(BURST_PODS)))
+        check(cpu.last_device_stats.get("bin_growths") == 1,
+              "dispatch: the CPU burst did not grow once")
+        for i in range(BURST_PAIRS):
+            for leg in (("cold", "warm") if i % 2 == 0 else ("warm", "cold")):
+                if leg == "cold":
+                    msolver._WARM_FAMILIES.difference_update(
+                        {k for k in msolver._WARM_FAMILIES
+                         if k[0] == BURST_BP2})
+                batch = one_per_node(BURST_PODS)
+                t0 = time.perf_counter()
+                with obs.round_trace("dispatch") as tr:
+                    res, n_compat = counted(lambda: card.solve(*batch))
+                wall_ms = (time.perf_counter() - t0) * 1e3
+                st = dict(card.last_device_stats)
+                spec = [sp.dur * 1e3 for sp in tr.spans()
+                        if sp.name == "solve.dispatch_spec"]
+                check(st.get("bin_growths") == 1 and st["engine"] == "cuda"
+                      and st["bins"] == BURST_BP2,
+                      f"dispatch: the {leg} burst did not grow once to "
+                      f"{BURST_BP2} bins on the card: {st}")
+                check(len(spec) == (leg == "warm"),
+                      f"dispatch: the {leg} burst opened {len(spec)} "
+                      "solve.dispatch_spec spans")
+                check(n_compat == (2 + st["Gp"]) * 2,
+                      f"dispatch: the {leg} burst launched compat "
+                      f"{n_compat} times, not (2 + Gp) x 2 = "
+                      f"{(2 + st['Gp']) * 2}")
+                check(res.scheduled_pod_count() == BURST_PODS
+                      and claims_of(res) == want,
+                      f"dispatch: the {leg} burst's claims differ from the "
+                      "CPU's")
+                burst[leg].append({
+                    "wall_ms": wall_ms, "solve_ms": st["solve_ms"],
+                    "decode_ms": st["decode_ms"], "spec_ms": spec,
+                    "compat_launches": n_compat})
+        burst.update(nodes=len(want), B=st["B"], bins=st["bins"],
+                     Gp=st["Gp"])
+        for leg in ("cold", "warm"):
+            for key in ("wall_ms", "solve_ms", "decode_ms"):
+                burst[f"{leg}_median_{key}"] = statistics.median(
+                    r[key] for r in burst[leg])
+        # the doubled family as the burst's dispatches left it warm
+        warm = {k for k in msolver._WARM_FAMILIES if k[0] == BURST_BP2}
+        check(warm, "dispatch: the burst left its doubled family cold")
+        # the burst's compat products at both of its axes
+        first_bp = card.plan(tensorize(*one_per_node(BURST_PODS)))["Bp"]
+        cases = solve_cases("dispatch burst", one_per_node(BURST_PODS), card,
+                            (first_bp, BURST_BP2), kernels)
+
+        # ---- the exact fit: a speculation the decode does not need ----
+        # the warm leg launches the doubled axis and throws it away; the
+        # cold leg defers it and never dispatches it
+        fit = {"cold": [], "warm": []}
+        want = claims_of(cpu.solve(*exact_fit(FIT_BIG, FIT_SMALL)))
+        for i in range(BURST_PAIRS):
+            for leg in (("cold", "warm") if i % 2 == 0 else ("warm", "cold")):
+                if leg == "cold":
+                    msolver._WARM_FAMILIES.difference_update(
+                        {k for k in msolver._WARM_FAMILIES
+                         if k[0] == BURST_BP2})
+                else:
+                    msolver._WARM_FAMILIES.update(warm)
+                batch = exact_fit(FIT_BIG, FIT_SMALL)
+                t0 = time.perf_counter()
+                with obs.round_trace("dispatch") as tr:
+                    res, n_compat = counted(lambda: card.solve(*batch))
+                wall_ms = (time.perf_counter() - t0) * 1e3
+                st = dict(card.last_device_stats)
+                spec = [sp.dur * 1e3 for sp in tr.spans()
+                        if sp.name == "solve.dispatch_spec"]
+                check(not st.get("bin_growths") and st["engine"] == "cuda"
+                      and st["B"] == FIT_BIG,
+                      f"dispatch: the {leg} exact fit grew or left its "
+                      f"{FIT_BIG}-bin axis: {st}")
+                check(len(spec) == (leg == "warm"),
+                      f"dispatch: the {leg} exact fit opened {len(spec)} "
+                      "solve.dispatch_spec spans")
+                check(n_compat == (2 + st["Gp"]) * (1 + (leg == "warm")),
+                      f"dispatch: the {leg} exact fit launched compat "
+                      f"{n_compat} times")
+                check(claims_of(res) == want and res.node_count() == FIT_BIG,
+                      f"dispatch: the {leg} exact fit's claims differ from "
+                      "the CPU's")
+                fit[leg].append({
+                    "wall_ms": wall_ms, "solve_ms": st["solve_ms"],
+                    "decode_ms": st["decode_ms"], "spec_ms": spec,
+                    "compat_launches": n_compat})
+        fit.update(nodes=len(want), B=st["B"], bins=st["bins"], Gp=st["Gp"])
+        for leg in ("cold", "warm"):
+            for key in ("wall_ms", "solve_ms", "decode_ms"):
+                fit[f"{leg}_median_{key}"] = statistics.median(
+                    r[key] for r in fit[leg])
+        cases += solve_cases("dispatch fit", exact_fit(FIT_BIG, FIT_SMALL),
+                             card, (st["bins"], BURST_BP2), kernels)
+    msolver._WARM_FAMILIES.clear()
+    msolver._WARM_FAMILIES.update(saved)
+
+    # ---- the exact-skip knob at 0 and 1, card = CPU ----
+    arms = {}
+    with env_knobs(KARPENTER_RELAX="0"):
+        for knob in ("0", "1"):
+            with env_knobs(KARPENTER_DECODE_EXACT_SKIP=knob):
+                for name, build in (
+                        ("mix", lambda: selector_mix(SKIP_MIX_PODS)),
+                        ("headline", lambda: build_workload(N_PODS, N_TYPES))):
+                    on_card, _ = counted(lambda: decided(TorchSolver(),
+                                                         build()))
+                    on_cpu = decided(TorchSolver(device="cpu"), build())
+                    for key in ("verdicts", "exact_skips", "claims"):
+                        check(on_card[key] == on_cpu[key],
+                              f"dispatch: {name} at exact-skip {knob}: "
+                              f"{key} card != CPU")
+                    # at 0 the mix's multi-group bins take the merged
+                    # re-check; at 1 no bin does for want of the knob
+                    disabled = on_card["verdicts"].get("full/disabled", 0)
+                    check(disabled > 0 if knob == "0" and name == "mix"
+                          else knob == "0" or disabled == 0,
+                          f"dispatch: {name} at exact-skip {knob}: "
+                          f"verdicts {on_card['verdicts']}")
+                    arms[f"{name}@{knob}"] = {
+                        "verdicts": on_card["verdicts"],
+                        "exact_skips": on_card["exact_skips"],
+                        "nodes": on_card["nodes"],
+                        "decode_ms": on_card["decode_ms"],
+                        "cpu_decode_ms": on_cpu["decode_ms"],
+                        "wall_ms": on_card["wall_ms"],
+                        "bins": on_card["bins"], "Gp": on_card["Gp"]}
+        # the mix's compat products at the shapes its solves launch: G×T,
+        # G×M and 1×Bp over its own catalog (the headline's are main's)
+        shape = {(arms[f"mix@{knob}"]["bins"], arms[f"mix@{knob}"]["Gp"])
+                 for knob in ("0", "1")}
+        check(len(shape) == 1, f"dispatch: the mix's Bp, Gp differ between "
+                               f"the exact-skip arms: {shape}")
+        mix_bp, mix_gp = shape.pop()
+        mix = TorchSolver()
+        plan = mix.plan(tensorize(*selector_mix(SKIP_MIX_PODS)))
+        check(plan["Gp"] == mix_gp, f"dispatch: the mix's plan pads G to "
+                                    f"{plan['Gp']}, its solves to {mix_gp}")
+        cases += solve_cases("dispatch mix", selector_mix(SKIP_MIX_PODS), mix,
+                             (mix_bp,), kernels)
+    return ({"dispatch": {"profiled_headline": profiled, "burst": burst,
+                          "exact_fit": fit, "exact_skip": arms,
+                          "compat_launches": launches["compat"]}},
+            launches, cases)
+
+
 def main() -> int:
     import torch
 
@@ -3704,6 +4097,17 @@ def main() -> int:
 
     headline_s = time.perf_counter() - t_headline
 
+    # ---- the eleventh main path: the solve's dispatch path ----
+    # right after the headline: late in a process that has profiled for
+    # minutes, CUPTI drops records (the G×T compat launch missing from
+    # three traces in a row, seen), and the phase counts compat's records
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        disp_line, disp_launches, disp_cases = dispatch_phase(
+            solver, pods2, templates2, its2, step_trace and
+            step_trace["kernels"], kernels, cuda_kernels, Path(workdir))
+        disp_line["dispatch"]["phase_s"] = time.perf_counter() - t0
+
     # ---- the second main path: the live round on the headline's cluster ----
     t0 = time.perf_counter()
     live_line, live_cases, live_launches, live_trace = live_round_phase(
@@ -3775,7 +4179,7 @@ def main() -> int:
     timed = [("main GxT", gt_in), ("main GxM", gm_in),
              ("main 1xB", bins_case(args_gpu, snap.G, Bp, kernels)),
              *live_cases, *cons_cases, *op_cases, *adm_cases, *spot_cases,
-             *cap_cases, *svc_cases, *mesh_cases,
+             *cap_cases, *svc_cases, *mesh_cases, *disp_cases,
              ("scale " + "x".join(map(str, SCALE_SHAPE)),
               compat_case(rng, *SCALE_SHAPE, dev))]
     cases = timed + [("x".join(map(str, shape)), compat_case(rng, *shape, dev))
@@ -3812,7 +4216,7 @@ def main() -> int:
                      + adm_launches["compat"] + spot_launches["compat"]
                      + eng_launches["compat"] + obs_head["compat_launches"]
                      + cap_launches["compat"] + svc_launches["compat"]
-                     + mesh_launches["compat"]),
+                     + mesh_launches["compat"] + disp_launches["compat"]),
         "launches_by_path": {"headline": launches["compat"],
                              "live_round": live_launches["compat"],
                              "consolidation": cons_launches["compat"],
@@ -3823,7 +4227,8 @@ def main() -> int:
                              "obs": obs_head["compat_launches"],
                              "capsule": cap_launches["compat"],
                              "service": svc_launches["compat"],
-                             "mesh": mesh_launches["compat"]},
+                             "mesh": mesh_launches["compat"],
+                             "dispatch": disp_launches["compat"]},
         "max_abs_err": 0 if mismatches == 0 else 1,
         "tolerance": "exact (one bool per cell)",
         "mismatches": mismatches,
@@ -3875,6 +4280,8 @@ def main() -> int:
     print(json.dumps(svc_line))
     mesh_line["mesh"]["script_s"] = time.perf_counter() - t_script
     print(json.dumps(mesh_line))
+    disp_line["dispatch"]["script_s"] = time.perf_counter() - t_script
+    print(json.dumps(disp_line))
     trace_tmp.cleanup()
     print(card)
     print(json.dumps({"ok": True, "device": {

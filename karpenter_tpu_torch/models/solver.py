@@ -75,13 +75,32 @@ records its own ``mesh.solve`` capture, so the ``solver.invoke`` capture is
 skipped there and one dispatch yields one capsule. On one card the mesh
 is degenerate and never taken.
 
-Not ported (see ROADMAP.md): the speculative doubled dispatch
-(``_invoke_spec``, and so its ``solve.dispatch_spec`` span).
+The doubling re-run is speculative where the JAX package's is
+(``_invoke_spec``): when a dispatch exhausts its bin axis, the doubled
+axis is queued on the card before the decode, inside
+``solve.dispatch_spec``, if its ``(Bp, level_bits, max_minv)`` family has
+been dispatched on the device before in this process (``_WARM_FAMILIES``,
+the counterpart of the JAX package's jit-wrapper cache), the last
+dispatch took the device rung, there is no mesh and no profile is being
+taken; the next ``solve.kernel`` then holds only its readback. Otherwise
+the re-run is deferred until the decode asks for it and goes through
+``_dispatch`` again.
+
+``KARPENTER_PROFILE_DIR`` wraps every dispatch that leaves the native
+engine (the mesh call, or the upload and ``_invoke``) in
+``torch.profiler`` and writes one Chrome trace per dispatch into that
+directory (``_profiled``), as the JAX package's ``jax.profiler.trace``
+does. ``KARPENTER_DECODE_EXACT_SKIP=0`` turns the decoder's multi-group
+exact-skip off (``_exact_skip_enabled``).
 """
 
 from __future__ import annotations
 
+import contextlib
+import itertools
 import logging
+import os
+import socket
 import threading
 import time
 
@@ -99,6 +118,7 @@ from karpenter_tpu_torch.models.scheduler import (
     subtract_max,
 )
 from karpenter_tpu_torch.ops import kernels, waves
+from karpenter_tpu_torch.ops.cuda_kernels import DEVICE_FAULTS
 from karpenter_tpu_torch.ops.relax import lp_bin_floor
 from karpenter_tpu_torch.ops.tensorize import (
     _COMPAT_CACHE_MAX,
@@ -113,7 +133,7 @@ from karpenter_tpu_torch.ops.tensorize import (
     tensorize_existing,
 )
 from karpenter_tpu_torch.utils import resources as resutil
-from karpenter_tpu_torch.utils.envknobs import env_int, env_str
+from karpenter_tpu_torch.utils.envknobs import env_bool, env_int, env_str
 
 # The JAX package's cutoffs (karpenter_tpu/models/solver.py), kept as they
 # are: pods per solve at or below which the native engine runs instead of
@@ -140,6 +160,50 @@ def _native_cutoff() -> int:
     """The routing master switch: 0 turns ALL engine routing off (the
     parity tests pin this to keep the device path under test)."""
     return env_int("KARPENTER_NATIVE_CUTOFF", NATIVE_CUTOFF_PODS)
+
+
+def _exact_skip_enabled() -> bool:
+    """``KARPENTER_DECODE_EXACT_SKIP``: the decoder's multi-group
+    exact-skip A/B kill switch, read per call (decode is host-side)."""
+    return env_bool("KARPENTER_DECODE_EXACT_SKIP", True)
+
+
+# the (Bp, level_bits, max_minv) families _invoke has dispatched on the
+# device in this process: the JAX package's jit-wrapper cache
+# (_PACKED_KERNELS) under the same key, so both packages call a doubled
+# family "warm" on the same history and speculate on the same solves
+_WARM_FAMILIES: set = set()
+# numbers the profiler's trace files apart within one process
+_PROFILE_SEQ = itertools.count()
+
+
+@contextlib.contextmanager
+def _profiled(device: torch.device):
+    """``KARPENTER_PROFILE_DIR``: profile the enclosed dispatch with
+    ``torch.profiler`` (CPU activity, and CUDA activity on a CUDA device)
+    and write its Chrome trace into the directory, one file per dispatch
+    (the worker name carries host, pid and a per-process number, so two
+    dispatches in one millisecond cannot collide). A CUDA dispatch whose
+    trace holds no kernel event (no CUPTI) raises. Unset, a no-op."""
+    directory = env_str("KARPENTER_PROFILE_DIR")
+    if not directory:
+        yield
+        return
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    cuda = device.type == "cuda"
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    worker = f"{socket.gethostname()}_{os.getpid()}_{next(_PROFILE_SEQ)}"
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(
+                     directory, worker_name=worker)) as prof:
+        yield
+    if cuda and not any(ev.device_type() == DeviceType.CUDA
+                        for ev in prof.profiler.kineto_results.events()):
+        raise RuntimeError(
+            f"KARPENTER_PROFILE_DIR: the profiled dispatch's trace ({worker}) "
+            "holds no CUDA kernel event; the profiler cannot trace the card")
 
 
 def _accelerated(device: torch.device) -> bool:
@@ -552,11 +616,14 @@ class TorchSolver(Solver):
         """Estimate the bin axis, dispatch, decode; while the estimated
         axis runs dry and pods are left over, re-run with a doubled axis
         (exact, just slower) rather than spill to the host loop. Gates on
-        the kernel's own bin usage, not post-validation claim count. Each
-        dispatch, the re-run included, goes through the engine gates on
-        the numpy arguments (``_dispatch``); the device copy is made at
-        the first dispatch that takes the device. Each dispatch records
-        its ``solver.invoke`` replay capture."""
+        the kernel's own bin usage, not post-validation claim count. The
+        doubled axis is dispatched before the decode (``_invoke_spec``:
+        queued on the card, or deferred to ``_dispatch``) and read only
+        when the decode leaves pods over. Each dispatch, the re-run
+        included, goes through the engine gates on the numpy arguments
+        (``_dispatch``); the device copy is made at the first dispatch
+        that takes the device. Each dispatch records its
+        ``solver.invoke`` replay capture."""
         G, T = snap.G, snap.T
         p = self.plan(snap, max_bins, esnap)
         B, Bp, E = p["B"], p["Bp"], p["E"]
@@ -574,18 +641,22 @@ class TorchSolver(Solver):
                     snap.off_zone.shape[1], snap.g_decl.shape[1],
                     snap.g_sown.shape[1], snap.g_aneed.shape[1],
                     p["Ep"] if esnap is not None else 0, snap.n_tiers)
+        statics = (p["level_bits"], p["max_minv"])
+        pull = None
         while True:
             t0 = time.perf_counter()
             # pow-2 ladder waste of THIS dispatch (real G×T×B cells vs the
             # padded volume the pack loop walks)
             devplane.record_padding("solve.bins", G * T * B,
                                     p["Gp"] * p["Tp"] * Bp)
+            # a speculative pull spends its time here as pure readback:
+            # its launch happened before the last decode
             with obs.span("solve.kernel", kind="device", bins=Bp):
-                host = self._dispatch(
-                    args_np, base_key + (Bp, p["level_bits"], p["max_minv"]),
-                    Bp, upload)
+                host = pull() if pull is not None else self._dispatch(
+                    args_np, base_key + (Bp,) + statics, Bp, upload)
             stages["solve_ms"] = stages.get("solve_ms", 0.0) + (
                 time.perf_counter() - t0) * 1000.0
+            pull = None
             # replay capsule (obs/capsule.py): this dispatch's exact
             # numpy inputs and host outputs by REFERENCE onto the open
             # round trace (a doubled re-run overwrites — last wins). The
@@ -602,6 +673,15 @@ class TorchSolver(Solver):
                     pallas=False)
             used = host["used"]
             grow = max_bins is None and bool(used[:B].all()) and B < bin_cap
+            B2 = min(2 * B, 4096)
+            Bp2 = _bucket(B2)
+            if grow:
+                # the doubled axis goes out NOW, so the card runs it while
+                # the host decodes; when the decode leaves no pods over it
+                # is thrown away, and the port has paid its host launch of
+                # the pack loop on this thread as well as the card's time
+                pull = self._invoke_spec(
+                    args_np, base_key + (Bp2,) + statics, Bp2, upload)
             assign_e = host["assign_e"][:G, :E] if esnap is not None else None
             t0 = time.perf_counter()
             with obs.span("solve.decode"):
@@ -614,8 +694,7 @@ class TorchSolver(Solver):
                 # the doubled re-run keeps axis exhaustion on the device
                 devplane.record_bin_growth()
                 stages["bin_growths"] = stages.get("bin_growths", 0) + 1
-                B = min(2 * B, 4096)
-                Bp = _bucket(B)
+                B, Bp = B2, Bp2
                 continue
             floor = p["floor"]
             if floor is not None and floor > 0 and claims and not retry:
@@ -640,8 +719,9 @@ class TorchSolver(Solver):
         ``_invoke``. ``key`` is the compile ledger's; its last two
         entries are ``level_bits`` and ``max_minv``. Returns the host
         output dict and leaves this thread's ``_engine``/``_route`` set.
-        The solver service's server calls this on the arguments a client
-        shipped."""
+        Under ``KARPENTER_PROFILE_DIR`` the mesh or device part is
+        profiled (``_profiled``). The solver service's server calls this
+        on the arguments a client shipped."""
         reason = self._native_reason(args_np)
         if reason is not None:
             host = self._invoke_native(args_np, max_bins, reason)
@@ -650,24 +730,26 @@ class TorchSolver(Solver):
         mesh = self._maybe_mesh()
         G, K, W = args_np["g_mask"].shape
         T = args_np["t_mask"].shape[0]
-        if mesh is not None and G * T * K * W >= SHARD_MIN_WORK:
-            from karpenter_tpu_torch.parallel import sharded_solve_host
+        with _profiled(self.device):
+            if mesh is not None and G * T * K * W >= SHARD_MIN_WORK:
+                from karpenter_tpu_torch.parallel import sharded_solve_host
 
-            # the shard-stage decomposition (shard.pad/tensorize/dispatch/
-            # block/merge leaves + the mesh.shard compile-ledger family)
-            # lives inside the parallel module
-            self._engine = "mesh"
-            self._route = ("mesh", "ok")
-            return sharded_solve_host(mesh, args_np, max_bins,
-                                      level_bits=key[-2])
-        if upload is None:
-            upload = {}
-        if "args" not in upload:
-            upload["args"] = kernels.from_kernel_args(args_np, self.device)
-        self._engine = self.device.type
-        self._route = ("device", "ok")
-        return self._invoke(upload["args"], max_bins, key[-2], key[-1],
-                            key=key)
+                # the shard-stage decomposition (shard.pad/tensorize/
+                # dispatch/block/merge leaves + the mesh.shard
+                # compile-ledger family) lives inside the parallel module
+                self._engine = "mesh"
+                self._route = ("mesh", "ok")
+                return sharded_solve_host(mesh, args_np, max_bins,
+                                          level_bits=key[-2])
+            if upload is None:
+                upload = {}
+            if "args" not in upload:
+                upload["args"] = kernels.from_kernel_args(args_np,
+                                                          self.device)
+            self._engine = self.device.type
+            self._route = ("device", "ok")
+            return self._invoke(upload["args"], max_bins, key[-2], key[-1],
+                                key=key)
 
     def _native_reason(self, args_np) -> str | None:
         """The gate of one dispatch, decided on the numpy arguments: the
@@ -715,6 +797,7 @@ class TorchSolver(Solver):
         holds the eager launch of the pack loop (PyTorch queues the
         kernels and returns), ``solve.block`` the readback, where the
         host waits for the card; ``key`` is the compile ledger's."""
+        _WARM_FAMILIES.add((max_bins, level_bits, max_minv))
         t0 = time.perf_counter()
         with obs.span("solve.dispatch", kind="device"):
             flat = packed_solve(args, max_bins, level_bits, max_minv)
@@ -725,6 +808,41 @@ class TorchSolver(Solver):
         with obs.span("solve.block", kind="device"):
             host = flat.cpu().numpy()  # one device->host read
         return self._unpack(host, args, max_bins)
+
+    def _invoke_spec(self, args_np, key, max_bins, upload):
+        """The doubled bin axis, dispatched before the decode that decides
+        whether it is needed; returns the pull that yields its host dict.
+        When the doubled family is warm (``_WARM_FAMILIES``), the last
+        dispatch took the device rung, there is no mesh and no profile is
+        being taken, ``packed_solve`` is queued now on the tensors already
+        uploaded, inside ``solve.dispatch_spec``, and the pull reads the
+        flat buffer back once. The launch runs on the calling thread: on
+        the card the host's launch of the pack loop moves ahead of the
+        decode and is not hidden; the card's run of it overlaps the
+        decode. Otherwise, and when the launch raises a
+        device fault, the pull is the ordinary ``_dispatch`` (the engine
+        gates again, on the same device; a repeated fault raises there)."""
+        def deferred():
+            return self._dispatch(args_np, key, max_bins, upload)
+
+        if not ((max_bins, key[-2], key[-1]) in _WARM_FAMILIES
+                and self._route == ("device", "ok")
+                and self._maybe_mesh() is None
+                and not env_str("KARPENTER_PROFILE_DIR")):
+            return deferred
+        args = upload["args"]
+        try:
+            t0 = time.perf_counter()
+            with obs.span("solve.dispatch_spec", kind="device"):
+                flat = packed_solve(args, max_bins, key[-2], key[-1])
+            devplane.record_dispatch("solve.kernel", key,
+                                     time.perf_counter() - t0)
+        except DEVICE_FAULTS:
+            logging.getLogger(__name__).warning(
+                "speculative doubled dispatch failed; deferring to the "
+                "ordinary dispatch", exc_info=True)
+            return deferred
+        return lambda: self._unpack(flat.cpu().numpy(), args, max_bins)
 
     @staticmethod
     def _unpack(flat, args, max_bins):
@@ -753,12 +871,16 @@ class TorchSolver(Solver):
         set on every survivor unless the set provably decomposes.
 
         Entries persist across solves in the type-side cache, keyed by
-        (template index, per-group signature keys)."""
+        (template index, per-group signature keys, the exact-skip knob)."""
         persist = getattr(snap, "compat_cache", None)
         row_keys = getattr(snap, "row_keys", None)
         pkey = None
         if persist is not None and row_keys is not None:
-            pkey = (m, tuple(row_keys[g] for g in gset))
+            # the exact-skip knob steers the entry's exactness arm below
+            # and the type-side key does not pin it: it rides the key, or
+            # a knob flip would serve stale entries
+            pkey = (m, tuple(row_keys[g] for g in gset),
+                    _exact_skip_enabled())
             hit = persist.get(pkey)
             if hit is not None:
                 return hit
@@ -792,6 +914,8 @@ class TorchSolver(Solver):
             exact, why = False, "group-key-overlap"
         elif len(gset) == 1 or self._decomposable(snap, gset):
             exact, why = True, "ok"
+        elif not _exact_skip_enabled():
+            exact, why = False, "disabled"
         else:
             exact, why = False, "non-decomposable"
         decisions.record_decision(
@@ -847,7 +971,10 @@ class TorchSolver(Solver):
         merged requirement set decomposes per key into single-group checks
         F already made (keys carried by 2+ groups have bit-equal rows, and
         offering-constraining groups agree on zone and capacity type), so
-        the merged re-check cannot remove a candidate."""
+        the merged re-check cannot remove a candidate. False when
+        ``KARPENTER_DECODE_EXACT_SKIP`` is 0."""
+        if not _exact_skip_enabled():
+            return False
         has, mask, tol = snap.g_has, snap.g_mask, snap.g_tol
         carriers: list = [None] * has.shape[1]
         for g in gset:
@@ -954,7 +1081,10 @@ class TorchSolver(Solver):
         overhead_dicts = [
             dict(zip(snap.resources, row.tolist())) for row in snap.m_overhead
         ]
-        # pass 1: per-bin memberships + cache keys
+        # pass 1: per-bin memberships + cache keys (the exact-skip knob
+        # rides them: compat_cache outlives this decode, across the
+        # solve's doubled re-runs)
+        skip = _exact_skip_enabled()
         bin_keys = []
         bin_meta = []  # (m, bin_pods, gcounts)
         key_rows: dict = {}  # key -> [ci...]
@@ -970,7 +1100,7 @@ class TorchSolver(Solver):
                 gcounts.append((g, c))
                 bin_pods.extend(snap.groups[g][cursors[g] : cursors[g] + c])
                 cursors[g] += c
-            key = (m, tuple(gset))
+            key = (m, tuple(gset), skip)
             bin_keys.append(key)
             bin_meta.append((m, bin_pods, gcounts))
             key_rows.setdefault(key, []).append(ci)

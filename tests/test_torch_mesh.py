@@ -736,30 +736,34 @@ class TestDecodeExactSkip:
                 ("a", "b"), ("a", "d"), ("a", "c"), ("e", "d"), ("e", "f"))]
         assert got[PORT] == got[JAX] == [True, True, False, True, False]
 
-    def test_skip_changes_no_claim(self):
+    @pytest.mark.parametrize("skip_on", [True, False],
+                             ids=["skip-on", "skip-off"])
+    def test_skip_changes_no_claim(self, skip_on, monkeypatch):
+        """Each arm of ``KARPENTER_DECODE_EXACT_SKIP`` in both packages:
+        the same claims and exact skips; the arms give the same claims."""
         from karpenter_tpu.models import TPUSolver
         from karpenter_tpu_torch.models import TorchSolver
+        from tests.test_torch_solver import selector_mix
 
         claims, skips = {}, {}
-        for pkg, solver in ((JAX, TPUSolver), (PORT, TorchSolver)):
-            ob, pool, catalog, CT, tz = _kit(pkg)
-            wk = mod(pkg, "api.labels")
-            sizes = [(0.25, 0.5), (0.5, 1.0), (0.75, 1.5), (1.0, 2.0)]
-            sels = [{}, {wk.ARCH_LABEL: "amd64"}, {wk.ARCH_LABEL: "arm64"}]
-            pods = [ob.Pod(metadata=ob.ObjectMeta(name=f"p{i}"),
-                           requests={"cpu": sizes[i % 4][0],
-                                     "memory": sizes[i % 4][1] * GIB},
-                           node_selector=dict(sels[i % 3]))
-                    for i in range(96)]
-            s0 = tz.STATS["decode_exact_skips"]
-            s = solver() if pkg == JAX else solver(device="cpu")
-            res = s.solve(pods, [CT(pool)], {"default": catalog(24)})
-            skips[pkg] = tz.STATS["decode_exact_skips"] - s0
-            assert res.scheduled_pod_count() == 96
-            claims[pkg] = sorted(
-                (c.template.nodepool_name,
-                 sorted(it.name for it in c.instance_types),
-                 sorted(p.metadata.name for p in c.pods))
-                for c in res.new_claims)
-        assert claims[PORT] == claims[JAX]
+        for arm in (not skip_on, skip_on):
+            monkeypatch.setenv("KARPENTER_DECODE_EXACT_SKIP",
+                               "1" if arm else "0")
+            for pkg, solver in ((JAX, TPUSolver), (PORT, TorchSolver)):
+                tz = mod(pkg, "ops.tensorize")
+                s0 = tz.STATS["decode_exact_skips"]
+                s = solver() if pkg == JAX else solver(device="cpu")
+                res = s.solve(*selector_mix(pkg))
+                skips[pkg] = tz.STATS["decode_exact_skips"] - s0
+                assert res.scheduled_pod_count() == 96
+                claims[pkg, arm] = sorted(
+                    (c.template.nodepool_name,
+                     sorted(it.name for it in c.instance_types),
+                     sorted(p.metadata.name for p in c.pods))
+                    for c in res.new_claims)
+        # skips of this case's arm, which ran last
         assert skips[PORT] == skips[JAX] > 0
+        assert claims[PORT, skip_on] == claims[JAX, skip_on]
+        assert claims[PORT, True] == claims[PORT, False]
+        if not skip_on:
+            assert skips[PORT] == 1  # the one single-group bin

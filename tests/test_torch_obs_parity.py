@@ -16,16 +16,18 @@ equal:
 - the compile ledger's ``(family, key, cold)`` sequence;
 - each kept round's span-name tree.
 
-One span exists only in the JAX package by design, listed in
-``JAX_ONLY_SPANS`` with the reason; the comparison drops it, and the
-``solve.kernel`` that consumes its result (which holds no dispatch of its
-own there) is read with the port's ``solve.dispatch``/``solve.block``.
+``JAX_ONLY_SPANS`` lists the spans only the JAX package opens, with the
+reason; it is empty, so the trees compare whole, the speculative
+``solve.dispatch_spec`` of a warm growth solve included. Each capture
+runs both solvers as single-device deployments with nothing warm before
+it (``one_device_cold``), so the trees do not depend on test order.
 
 Tolerance: exact.
 """
 
 from __future__ import annotations
 
+import contextlib
 import importlib
 import re
 
@@ -37,15 +39,7 @@ from tests import test_torch_interruption as intr
 from tests import test_torch_operator as op
 from tests.test_torch_operator import JAX, PORT, Kit
 
-JAX_ONLY_SPANS = {
-    # TPUSolver._invoke_spec (karpenter_tpu/models/solver.py:888-921):
-    # the doubled bin axis is dispatched asynchronously before the decode
-    # so XLA overlaps it; the port's eager pack loop spends its time
-    # launching kernels on the host and has nothing to overlap, so it
-    # re-runs the doubled axis synchronously inside the next solve.kernel
-    "solve.dispatch_spec":
-        "speculative doubled dispatch; the port re-runs synchronously",
-}
+JAX_ONLY_SPANS: dict = {}
 
 STATS_KEYS = ("cold_compiles", "warm_dispatches", "pad_dispatches",
               "pad_cells_actual", "pad_cells_padded", "bin_growths")
@@ -61,22 +55,6 @@ def planes(pkg):
 
 def _tree(span) -> tuple:
     return (span.name, tuple(_tree(c) for c in span.children))
-
-
-def _drop_jax_only(tree):
-    name, children = tree
-    out, consumed = [], False
-    for child in children:
-        if child[0] in JAX_ONLY_SPANS:
-            consumed = True
-            continue
-        child = _drop_jax_only(child)
-        if consumed and child[0] == "solve.kernel" and not child[1]:
-            child = ("solve.kernel", (("solve.dispatch", ()),
-                                      ("solve.block", ())))
-            consumed = False
-        out.append(child)
-    return name, tuple(out)
 
 
 class _Names:
@@ -106,9 +84,56 @@ def _event(ev, names) -> tuple:
     return tuple(sorted(out.items()))
 
 
+class _CaptureKernels(dict):
+    """The JAX package's jit-wrapper cache as one capture sees it: a
+    wrapper built before the capture is reused, but its family is warm
+    (``in``) only once the capture itself has asked for it."""
+
+    def __init__(self, before: dict):
+        super().__init__()
+        self.before = before
+
+    def get(self, key, default=None):
+        if key not in self and key in self.before:
+            self[key] = self.before[key]
+        return super().get(key, default)
+
+
+@contextlib.contextmanager
+def one_device_cold(pkg):
+    """The package's solver as a single-device deployment that has
+    dispatched nothing before the capture: the JAX solver without the
+    conftest's mesh (which would turn its speculation off, while the port
+    on the CPU has none), and both warm records (the JAX wrapper cache,
+    the port's ``_WARM_FAMILIES``) seen empty, so whether a growth solve
+    speculates depends on the capture alone and not on which tests ran
+    before it on the worker. What the capture warms is kept after it."""
+    mod = importlib.import_module(f"{pkg}.models.solver")
+    if pkg == JAX:
+        before = mod._PACKED_KERNELS
+        mesh = mod.TPUSolver._maybe_mesh
+        mod._PACKED_KERNELS = _CaptureKernels(before)
+        mod.TPUSolver._maybe_mesh = lambda self: None
+        try:
+            yield
+        finally:
+            before.update(mod._PACKED_KERNELS)
+            mod._PACKED_KERNELS = before
+            mod.TPUSolver._maybe_mesh = mesh
+    else:
+        before = mod._WARM_FAMILIES
+        mod._WARM_FAMILIES = set()
+        try:
+            yield
+        finally:
+            before |= mod._WARM_FAMILIES
+            mod._WARM_FAMILIES = before
+
+
 def capture(pkg, run, tmp_path):
-    """Run ``run(pkg)`` with the package's planes reset and its tracer
-    on; return the planes' records and whatever ``run`` returned."""
+    """Run ``run(pkg)`` with the package's planes reset, its tracer on
+    and its solver as ``one_device_cold`` sets it; return the planes'
+    records and whatever ``run`` returned."""
     obs, devplane, decisions, timeline = planes(pkg)
     obs.configure(enabled=True, dump_dir=str(tmp_path / pkg),
                   capacity=4096, dump_all=False)
@@ -132,7 +157,8 @@ def capture(pkg, run, tmp_path):
     decisions.DECISIONS.record = spy_record
     devplane.LEDGER.record_dispatch = spy_dispatch
     try:
-        result = run(pkg)
+        with one_device_cold(pkg):
+            result = run(pkg)
     finally:
         del decisions.DECISIONS.record
         del devplane.LEDGER.record_dispatch
@@ -160,7 +186,7 @@ def assert_same_planes(got, want):
     assert got["anomalies"] == want["anomalies"]
     assert got["stats"] == want["stats"]
     assert got["ledger"] == want["ledger"]
-    assert got["trees"] == [_drop_jax_only(t) for t in want["trees"]]
+    assert got["trees"] == want["trees"]
 
 
 def both(run, tmp_path):
@@ -259,6 +285,20 @@ def test_storm_leg_planes_match_jax(tmp_path):
     kinds = {dict(e)["kind"] for e in got["events"]}
     assert {"interrupt", "launch", "register", "bind", "drain",
             "retire"} <= kinds
+
+
+def test_warm_growth_solve_planes_match_jax(tmp_path):
+    """A solve whose bin axis runs dry, cold then warm on one solver per
+    package (``tests/test_torch_dispatch.py``'s rounds, the doubled family
+    set cold in both first): every plane equal, the whole span trees
+    included, and the warm solve's speculative ``solve.dispatch_spec``
+    in both."""
+    from tests.test_torch_dispatch import cold_growth_rounds
+
+    got, got_res, want_res = both(cold_growth_rounds, tmp_path)
+    assert got_res == want_res
+    assert [_names(t) >= {"solve.dispatch_spec"} for t in got["trees"]] == [
+        False, True]
 
 
 def test_generated_names_are_numbered_not_compared():

@@ -155,6 +155,96 @@ def test_bin_axis_doubling_matches():
     assert _claims(tres) == _claims(jres)
 
 
+def selector_mix(pkg: str, n: int = 96, catalog=None):
+    """``tests/test_partitioned_mesh.py``'s selector-heavy mix: n pods of
+    four sizes under no selector or one of two arch selectors, over
+    ``benchmark_catalog(24)`` (fresh objects unless ``catalog`` is given,
+    so the type-side and compat caches start empty). Its bins host several
+    groups, so the decoder's multi-group exact-skip decides them."""
+    objects = importlib.import_module(f"{pkg}.api.objects")
+    wk = importlib.import_module(f"{pkg}.api.labels")
+    nodepool = importlib.import_module(f"{pkg}.api.nodepool")
+    inflight = importlib.import_module(f"{pkg}.models.inflight")
+    if catalog is None:
+        catalog = importlib.import_module(
+            f"{pkg}.cloudprovider.catalog").benchmark_catalog(24)
+    sizes = [(0.25, 0.5), (0.5, 1.0), (0.75, 1.5), (1.0, 2.0)]
+    sels = [{}, {wk.ARCH_LABEL: "amd64"}, {wk.ARCH_LABEL: "arm64"}]
+    pods = [objects.Pod(metadata=objects.ObjectMeta(name=f"p{i}"),
+                        requests={"cpu": sizes[i % 4][0],
+                                  "memory": sizes[i % 4][1] * 2**30},
+                        node_selector=dict(sels[i % 3]))
+            for i in range(n)]
+    pool = nodepool.NodePool(metadata=objects.ObjectMeta(name="default"))
+    return pods, [inflight.ClaimTemplate(pool)], {"default": catalog}
+
+
+def _rechecks(pkg: str, solver, inputs) -> tuple:
+    """One solve of ``inputs``: its ``decode.recheck`` verdicts
+    ``{(rung, reason): n}``, its ``decode_exact_skips`` delta and its
+    claims."""
+    decisions = importlib.import_module(f"{pkg}.obs.decisions")
+    stats = importlib.import_module(f"{pkg}.ops.tensorize").STATS
+    c0, s0 = decisions.counts(), stats["decode_exact_skips"]
+    claims = _claims(solver.solve(*inputs))
+    verdicts = {}
+    for (site, rung, reason), n in decisions.counts().items():
+        d = n - c0.get((site, rung, reason), 0)
+        if site == "decode.recheck" and d:
+            verdicts[(rung, reason)] = d
+    return verdicts, stats["decode_exact_skips"] - s0, claims
+
+
+@pytest.mark.parametrize("knob", ["0", "1", None])
+def test_exact_skip_knob_matches_jax(knob, monkeypatch):
+    """``KARPENTER_DECODE_EXACT_SKIP`` at 0, 1 and unset: both packages
+    record the same ``decode.recheck`` verdicts and exact skips, and give
+    the same claims. At 0 the multi-group bins take the merged re-check
+    (``full``/``disabled``); single-group bins still skip."""
+    if knob is None:
+        monkeypatch.delenv("KARPENTER_DECODE_EXACT_SKIP", raising=False)
+    else:
+        monkeypatch.setenv("KARPENTER_DECODE_EXACT_SKIP", knob)
+    got = {pkg: _rechecks(pkg, solver, selector_mix(pkg))
+           for pkg, solver in (("karpenter_tpu", TPUSolver()),
+                               ("karpenter_tpu_torch",
+                                TorchSolver(device="cpu")))}
+    assert got["karpenter_tpu_torch"] == got["karpenter_tpu"]
+    verdicts, skips, claims = got["karpenter_tpu_torch"]
+    assert sum(len(pods) for _, pods, _ in claims) == 96
+    if knob == "0":
+        assert verdicts.get(("full", "disabled"), 0) > 0
+        assert skips < sum(verdicts.values())
+    else:
+        assert ("full", "disabled") not in verdicts
+        assert skips == verdicts[("skip", "ok")] > 1
+
+
+def test_exact_skip_flip_serves_no_stale_entry(monkeypatch):
+    """Two solves over one catalog share the type-side entry's persisted
+    compat cache; flipping the knob 1 -> 0 between them must miss that
+    cache (the knob rides its key), so the second solve records
+    ``full``/``disabled`` in both packages, as a fresh cache would."""
+    got = {}
+    for pkg, solver in (("karpenter_tpu", TPUSolver()),
+                        ("karpenter_tpu_torch", TorchSolver(device="cpu"))):
+        catalog = importlib.import_module(
+            f"{pkg}.cloudprovider.catalog").benchmark_catalog(24)
+        monkeypatch.setenv("KARPENTER_DECODE_EXACT_SKIP", "1")
+        first = _rechecks(pkg, solver, selector_mix(pkg, catalog=catalog))
+        monkeypatch.setenv("KARPENTER_DECODE_EXACT_SKIP", "0")
+        second = _rechecks(pkg, solver, selector_mix(pkg, catalog=catalog))
+        monkeypatch.setenv("KARPENTER_DECODE_EXACT_SKIP", "1")
+        third = _rechecks(pkg, solver, selector_mix(pkg, catalog=catalog))
+        got[pkg] = (first, second, third)
+    assert got["karpenter_tpu_torch"] == got["karpenter_tpu"]
+    first, second, third = got["karpenter_tpu_torch"]
+    assert ("full", "disabled") not in first[0]
+    assert second[0].get(("full", "disabled"), 0) > 0
+    # back at 1 the first solve's entries are served: no verdict at all
+    assert third[0] == {} and third[2] == first[2] == second[2]
+
+
 def test_unsupported_inputs_raise():
     """Nothing the solver takes raises any more. ``tier_of`` (the fused
     admission round) splits the groups by tier as the JAX package's does,
