@@ -52,7 +52,14 @@ the host waits for the card), then ``solve.decode``; the compile ledger's
 static parameters), the ``solve.bins`` padding site, the bin-growth
 counter, the solve-quality account and the ``decode.recheck`` decision.
 ``last_device_stats`` carries the solve's ``cold_compiles`` and
-``pad_waste_ratio`` deltas.
+``pad_waste_ratio`` deltas. The port's own layer spans, which the JAX
+package does not open, cover the rest of a device-path solve:
+``solve.classify`` (the eligibility split), ``solve.plan`` (the bin-axis
+estimate, holding the LP floor's ``relax.inputs`` and ``relax.floor``)
+and ``solve.commit`` (the stats and the commits before the host pass);
+``solve.dispatch`` and ``solve.dispatch_spec`` carry ``Gp``, ``Bp`` and
+``level_bits``. No span encloses the whole solve, so a round's time
+outside its spans is what no layer accounts for.
 
 Every dispatch records a replay capture (``obs/capsule.py``, seam
 ``solver.invoke``): the numpy kernel arguments, the host outputs, the
@@ -400,12 +407,13 @@ class TorchSolver(Solver):
             # self-selecting constraint shapes into zone-pinned subgroups /
             # per-bin caps; everything it can't express routes to the host
             basic, rest = [], []
-            for p in pods:
-                ok = p.__dict__.get("_basic_elig_cache")
-                if ok is None:
-                    ok = device_basic_eligible(p)
-                    p.__dict__["_basic_elig_cache"] = ok
-                (basic if ok else rest).append(p)
+            with obs.span("solve.classify"):
+                for p in pods:
+                    ok = p.__dict__.get("_basic_elig_cache")
+                    if ok is None:
+                        ok = device_basic_eligible(p)
+                        p.__dict__["_basic_elig_cache"] = ok
+                    (basic if ok else rest).append(p)
             host_routed = {"ineligible-spec": len(rest)} if rest else {}
             t0 = time.perf_counter()
             plan = waves.compile_topology(group_by_signature(basic), topology)
@@ -431,12 +439,13 @@ class TorchSolver(Solver):
             device_plan = plan
         else:
             eligible, rest = [], []
-            for p in pods:
-                ok = p.__dict__.get("_elig_cache")
-                if ok is None:
-                    ok = device_eligible(p)
-                    p.__dict__["_elig_cache"] = ok
-                (eligible if ok else rest).append(p)
+            with obs.span("solve.classify"):
+                for p in pods:
+                    ok = p.__dict__.get("_elig_cache")
+                    if ok is None:
+                        ok = device_eligible(p)
+                        p.__dict__["_elig_cache"] = ok
+                    (eligible if ok else rest).append(p)
             host_routed = {"ineligible-spec": len(rest)} if rest else {}
             if not eligible:
                 self.last_device_stats = _host_stats(pods, host_routed,
@@ -472,56 +481,57 @@ class TorchSolver(Solver):
             # the solve's ONE solver.route verdict: the engine the last
             # dispatch ran on (a doubled re-run overwrites)
             decisions.record_decision("solver.route", *self._route)
-        pad_padded = devplane.STATS["pad_cells_padded"] - dp0[2]
-        pad_actual = devplane.STATS["pad_cells_actual"] - dp0[1]
-        self.last_device_stats = dict(
-            cold_compiles=devplane.STATS["cold_compiles"] - dp0[0],
-            pad_waste_ratio=(
-                round(1.0 - pad_actual / pad_padded, 4)
-                if pad_padded > 0 else 0.0),
-            groups=snap.G,
-            types=snap.T,
-            existing=esnap.E if esnap is not None else 0,
-            device_pods=len(eligible) - len(retry),
-            retry_pods=len(retry),
-            host_pods=len(rest),
-            existing_pods=sum(len(e[1]) for e in ecommits),
-            engine=self._engine,
-            host_routed=host_routed,
-            group_row_cache_hits=_TZ_STATS["group_row_hits"] - rows0[0],
-            group_row_cache_misses=_TZ_STATS["group_row_misses"] - rows0[1],
-            **stages,
-        )
-        # commit device placements onto the existing nodes (deferred so a
-        # doubled re-run cannot double-apply); the host pass then sees the
-        # updated availability/requirements (existingnode.go Add:64)
-        for node, node_pods, delta, merged, gcounts in ecommits:
-            node.pods.extend(node_pods)
-            node.requests = resutil.merge(node.requests, delta)
-            node.requirements = merged
+        with obs.span("solve.commit"):
+            pad_padded = devplane.STATS["pad_cells_padded"] - dp0[2]
+            pad_actual = devplane.STATS["pad_cells_actual"] - dp0[1]
+            self.last_device_stats = dict(
+                cold_compiles=devplane.STATS["cold_compiles"] - dp0[0],
+                pad_waste_ratio=(
+                    round(1.0 - pad_actual / pad_padded, 4)
+                    if pad_padded > 0 else 0.0),
+                groups=snap.G,
+                types=snap.T,
+                existing=esnap.E if esnap is not None else 0,
+                device_pods=len(eligible) - len(retry),
+                retry_pods=len(retry),
+                host_pods=len(rest),
+                existing_pods=sum(len(e[1]) for e in ecommits),
+                engine=self._engine,
+                host_routed=host_routed,
+                group_row_cache_hits=_TZ_STATS["group_row_hits"] - rows0[0],
+                group_row_cache_misses=_TZ_STATS["group_row_misses"] - rows0[1],
+                **stages,
+            )
+            # commit device placements onto the existing nodes (deferred so a
+            # doubled re-run cannot double-apply); the host pass then sees the
+            # updated availability/requirements (existingnode.go Add:64)
+            for node, node_pods, delta, merged, gcounts in ecommits:
+                node.pods.extend(node_pods)
+                node.requests = resutil.merge(node.requests, delta)
+                node.requirements = merged
+                if has_topology:
+                    for g, c in gcounts:
+                        topology.record_many(snap.groups[g][0], merged, c)
             if has_topology:
-                for g, c in gcounts:
-                    topology.record_many(snap.groups[g][0], merged, c)
-        if has_topology:
-            # commit the FINAL claim set into the host topology engine once
-            # (a doubled re-run discards its predecessor's claims, so decode
-            # itself must not record): register each claim hostname domain
-            # (nodeclaim.go:49) and record every landed group with
-            # multiplicity (topology.go Record:141), so the host pass and
-            # later rounds see the device placements
-            for claim in claims:
-                claim.topology = topology
-                topology.register(wk.HOSTNAME_LABEL, claim.hostname)
-                for g, c in getattr(claim, "_gcounts", ()):
-                    topology.record_many(snap.groups[g][0], claim.requirements, c)
-        # debit nodepool limits for the device-built claims so the host pass
-        # can't double-spend them (scheduler.go:292 subtractMax)
-        if limits:
-            limits = {k: dict(v) for k, v in limits.items()}
-            for claim in claims:
-                pool = claim.template.nodepool_name
-                if pool in limits:
-                    limits[pool] = subtract_max(limits[pool], claim.instance_types)
+                # commit the FINAL claim set into the host topology engine once
+                # (a doubled re-run discards its predecessor's claims, so decode
+                # itself must not record): register each claim hostname domain
+                # (nodeclaim.go:49) and record every landed group with
+                # multiplicity (topology.go Record:141), so the host pass and
+                # later rounds see the device placements
+                for claim in claims:
+                    claim.topology = topology
+                    topology.register(wk.HOSTNAME_LABEL, claim.hostname)
+                    for g, c in getattr(claim, "_gcounts", ()):
+                        topology.record_many(snap.groups[g][0], claim.requirements, c)
+            # debit nodepool limits for the device-built claims so the host pass
+            # can't double-spend them (scheduler.go:292 subtractMax)
+            if limits:
+                limits = {k: dict(v) for k, v in limits.items()}
+                for claim in claims:
+                    pool = claim.template.nodepool_name
+                    if pool in limits:
+                        limits[pool] = subtract_max(limits[pool], claim.instance_types)
         # leftovers + ineligible pods run through the host loop seeded with
         # the device-built claims (they can still land on those bins)
         if rest or retry:
@@ -625,7 +635,8 @@ class TorchSolver(Solver):
         that takes the device. Each dispatch records its
         ``solver.invoke`` replay capture."""
         G, T = snap.G, snap.T
-        p = self.plan(snap, max_bins, esnap)
+        with obs.span("solve.plan"):
+            p = self.plan(snap, max_bins, esnap)
         B, Bp, E = p["B"], p["Bp"], p["E"]
         stages["lp_led"] = p["lp_led"]
         stages["floor"] = p["floor"]
@@ -799,7 +810,9 @@ class TorchSolver(Solver):
         host waits for the card; ``key`` is the compile ledger's."""
         _WARM_FAMILIES.add((max_bins, level_bits, max_minv))
         t0 = time.perf_counter()
-        with obs.span("solve.dispatch", kind="device"):
+        with obs.span("solve.dispatch", kind="device",
+                      Gp=args["g_mask"].shape[0], Bp=max_bins,
+                      level_bits=level_bits):
             flat = packed_solve(args, max_bins, level_bits, max_minv)
         # a first-sight key's seconds are its launch: CUDA's first use and
         # the compat build, where the JAX package pays its XLA compile
@@ -833,7 +846,9 @@ class TorchSolver(Solver):
         args = upload["args"]
         try:
             t0 = time.perf_counter()
-            with obs.span("solve.dispatch_spec", kind="device"):
+            with obs.span("solve.dispatch_spec", kind="device",
+                          Gp=args["g_mask"].shape[0], Bp=max_bins,
+                          level_bits=key[-2]):
                 flat = packed_solve(args, max_bins, key[-2], key[-1])
             devplane.record_dispatch("solve.kernel", key,
                                      time.perf_counter() - t0)

@@ -17,10 +17,14 @@ Behavioral mirror of the reference's pkg/controllers/provisioning/scheduling/
 The device path (ops/waves.py) compiles the self-selecting common cases of
 these groups into per-zone sub-groups / per-bin caps; everything else runs
 through this host engine.
+
+A ``Topology`` is built inside the port's ``topology.build`` span, which
+the JAX package does not open.
 """
 
 from __future__ import annotations
 
+from karpenter_tpu_torch import obs
 from karpenter_tpu_torch.api import labels as wk
 from karpenter_tpu_torch.scheduling import (
     DOES_NOT_EXIST,
@@ -239,24 +243,25 @@ class Topology:
     protocol the scheduler drives (topology.go:43)."""
 
     def __init__(self, cluster=None, domains: dict | None = None, pods=()):
-        self.cluster = cluster  # optional ClusterView (state plane)
-        self.domains = {k: set(v) for k, v in (domains or {}).items()}
-        self.topologies: dict = {}
-        self.inverse_topologies: dict = {}
-        self.excluded_pods = {p.uid for p in pods}
-        # (namespace, labels) -> [tg...] whose selector matches; selects()
-        # is a pure function of those two, so pods sharing a label
-        # signature share one registry scan (the record path is
-        # per-(pod, tg) otherwise — the dominant cost of committing a
-        # device solve). update() invalidates (it can add groups).
-        self._sel_memo: dict = {}
-        # uid -> [tg...] the pod currently owns: update() un-registers via
-        # this index instead of sweeping every registry group per pod
-        self._owner_tgs: dict = {}
-        if cluster is not None:
-            self._update_inverse_affinities()
-        for p in pods:
-            self.update(p)
+        with obs.span("topology.build"):
+            self.cluster = cluster  # optional ClusterView (state plane)
+            self.domains = {k: set(v) for k, v in (domains or {}).items()}
+            self.topologies: dict = {}
+            self.inverse_topologies: dict = {}
+            self.excluded_pods = {p.uid for p in pods}
+            # (namespace, labels) -> [tg...] whose selector matches; selects()
+            # is a pure function of those two, so pods sharing a label
+            # signature share one registry scan (the record path is
+            # per-(pod, tg) otherwise — the dominant cost of committing a
+            # device solve). update() invalidates (it can add groups).
+            self._sel_memo: dict = {}
+            # uid -> [tg...] the pod currently owns: update() un-registers via
+            # this index instead of sweeping every registry group per pod
+            self._owner_tgs: dict = {}
+            if cluster is not None:
+                self._update_inverse_affinities()
+            for p in pods:
+                self.update(p)
 
     # -- lifecycle -------------------------------------------------------
     def update(self, pod):

@@ -52,6 +52,18 @@ join an existing trace with ``attach(trace)``. Mutation of the shared
 trace structure is guarded by the trace's lock. A thread with no active
 trace gets no-op spans (a shared singleton — no allocation).
 
+Profiler ranges: while a ``torch.profiler`` records on the calling
+thread, each span and each round (``round <trace id>``) also opens a
+profiler range of the same name, closed with it, so the profiler's own
+trace holds the program's spans on its clock and each kernel nests,
+through the op that launched it, under the span that launched it (the
+``KARPENTER_PROFILE_DIR`` dumps, any caller's profiler). The range is
+PyTorch's function-scope record (``_RecordFunctionFast``, a ``cpu_op``
+event), not ``record_function``'s user annotation: a user annotation
+also lays a ``gpu_user_annotation`` event over the device's timeline,
+which a reader of device activity counts as a kernel and as busy time.
+With no profiler recording a span pays one check and makes no range.
+
 Safety: span enter/exit must NEVER execute inside the pack loop
 (``ops/kernels.py`` ``pack``/``solve_step``/``probe_step``) or
 ``ops/cuda_kernels.py``: a call per pack step would add host work to a
@@ -76,6 +88,9 @@ import os
 import tempfile
 import threading
 import time
+
+from torch._C import _profiler as _torch_profiler
+from torch._C._autograd import _profiler_enabled
 
 from karpenter_tpu_torch.utils import envknobs
 
@@ -241,22 +256,35 @@ class _NopSpan:
 _NOP = _NopSpan()
 
 
+def _open_range(name: str):
+    """A profiler range named ``name``, entered; the caller has checked
+    that a profiler records on this thread."""
+    rf = _torch_profiler._RecordFunctionFast(name)
+    rf.__enter__()
+    return rf
+
+
 class _SpanHandle:
-    __slots__ = ("_tracer", "_span", "_attached")
+    __slots__ = ("_tracer", "_span", "_attached", "_range")
 
     def __init__(self, tracer: "Tracer", sp: Span, attached: bool):
         self._tracer = tracer
         self._span = sp
         self._attached = attached
+        self._range = None
 
     def __enter__(self):
         if self._attached:
             self._tracer._tls.stack.append(self._span)
+        if _profiler_enabled():
+            self._range = _open_range(self._span.name)
         return self._span
 
     def __exit__(self, et, ev, tb):
         sp = self._span
         sp.dur = time.perf_counter() - sp.t0
+        if self._range is not None:
+            self._range.__exit__(et, ev, tb)
         if et is not None:
             if sp.attrs is None:
                 sp.attrs = {}
@@ -269,21 +297,26 @@ class _SpanHandle:
 
 
 class _RoundHandle:
-    __slots__ = ("_tracer", "_trace")
+    __slots__ = ("_tracer", "_trace", "_range")
 
     def __init__(self, tracer: "Tracer", trace: Trace):
         self._tracer = tracer
         self._trace = trace
+        self._range = None
 
     def __enter__(self):
         tls = self._tracer._tls
         tls.trace = self._trace
         tls.stack = [self._trace.root]
+        if _profiler_enabled():
+            self._range = _open_range(f"round {self._trace.trace_id}")
         return self._trace
 
     def __exit__(self, et, ev, tb):
         tr = self._trace
         tr.root.dur = time.perf_counter() - tr.root.t0
+        if self._range is not None:
+            self._range.__exit__(et, ev, tb)
         if et is not None:
             if tr.root.attrs is None:
                 tr.root.attrs = {}

@@ -54,8 +54,10 @@ Knobs (``utils/envknobs.py``), read as the JAX package reads them:
 Each dispatch records the JAX package's compile-ledger key under the
 ``relax.kernel`` family and its ``relax.grid`` padding
 (obs/devplane.py); the joint LP and each rounding window run in the
-``relax.solve`` and ``relax.round`` spans, which end after the host read
-that waits for the device.
+``relax.solve`` and ``relax.round`` spans, the floor's host tensors in
+``relax.inputs`` and its upload, iteration and read in ``relax.floor``
+(its iterations summed in ``RELAX_STATS["floor_iters"]``); each ends
+after the host read that waits for the device.
 
 Replay capture (obs/capsule.py, seam ``relax.dispatch``): a joint round
 that reaches the rounding descent records the LP tensors, the standard
@@ -114,9 +116,9 @@ RELAX_STATS = {
     # the provisioning floor
     "floor_calls": 0,
     "floor_raises": 0,
+    # PDHG iterations over the floor calls (floor_lb's returned count)
+    "floor_iters": 0,
     "last_lb": 0.0,
-    # wall clock of both rungs' device work
-    "kernel_ms": 0.0,
 }
 
 
@@ -260,17 +262,23 @@ def lp_bin_floor(snap, est: int, device=None) -> int:
         return est
     RELAX_STATS["floor_calls"] += 1
     t0 = time.perf_counter()
-    d, n, alloc, cm = (torch.from_numpy(a).to(dev) for a in floor_inputs(snap))
-    key = (d.shape[0], alloc.shape[0], d.shape[1], True,
-           _relax_max_iters(), _relax_tol(), _relax_rho())
-    lb_t, _ = floor_lb(d, n, alloc, cm, key[4], key[5], key[6])
-    lb = float(lb_t)
+    with obs.span("relax.inputs"):
+        host = floor_inputs(snap)
+    with obs.span("relax.floor", kind="device") as sp:
+        d, n, alloc, cm = (torch.from_numpy(a).to(dev) for a in host)
+        key = (d.shape[0], alloc.shape[0], d.shape[1], True,
+               _relax_max_iters(), _relax_tol(), _relax_rho())
+        lb_t, iters = floor_lb(d, n, alloc, cm, key[4], key[5], key[6])
+        lb = float(lb_t)
+        floor = int(np.ceil(lb - 1e-6))
+        if sp is not None:
+            sp.attrs = dict(iters=iters, Gp=key[0], Tp=key[1],
+                            raised=floor > est)
     secs = time.perf_counter() - t0
     devplane.record_dispatch("relax.kernel", ("floor",) + key, secs)
     devplane.record_padding("relax.grid", G * T, key[0] * key[1])
-    RELAX_STATS["kernel_ms"] += secs * 1000.0
+    RELAX_STATS["floor_iters"] += iters
     RELAX_STATS["last_lb"] = lb
-    floor = int(np.ceil(lb - 1e-6))
     if floor > est:
         RELAX_STATS["floor_raises"] += 1
         return floor
@@ -573,7 +581,6 @@ def joint_relax_plan(bundle, candidates, col_arr, contrib, cum, timings,
     devplane.record_dispatch("relax.kernel", key, secs)
     devplane.record_padding("relax.grid", G * (bundle.esnap.E + 1) * N,
                             Gp * Ec * Np)
-    RELAX_STATS["kernel_ms"] += secs * 1000.0
     iters = out["iters"]
     RELAX_STATS["iters"] += iters
     RELAX_STATS["last_iters"] = iters
@@ -616,7 +623,6 @@ def joint_relax_plan(bundle, candidates, col_arr, contrib, cum, timings,
             tensors, E, order, k_ub, N, n_windows, dev):
         devplane.record_dispatch("relax.kernel", ("round",) + key, secs)
         round_ms += secs * 1000.0
-        RELAX_STATS["kernel_ms"] += secs * 1000.0
         timings["relax_ms"] += secs * 1000.0
         for i, k in enumerate(ks):
             if k < 2 or bad[i] > 0.5:

@@ -17,7 +17,10 @@ equal:
 - each kept round's span-name tree.
 
 ``JAX_ONLY_SPANS`` lists the spans only the JAX package opens, with the
-reason; it is empty, so the trees compare whole, the speculative
+reason; it is empty. ``PORT_ONLY_SPANS`` lists the spans only the port
+opens, with the reason: they are stripped from the port's trees before
+the comparison, each one's children lifted into its place, and every
+other span compares whole and exactly, the speculative
 ``solve.dispatch_spec`` of a warm growth solve included. Each capture
 runs both solvers as single-device deployments with nothing warm before
 it (``one_device_cold``), so the trees do not depend on test order.
@@ -40,6 +43,9 @@ from tests import test_torch_operator as op
 from tests.test_torch_operator import JAX, PORT, Kit
 
 JAX_ONLY_SPANS: dict = {}
+PORT_ONLY_SPANS: dict = dict.fromkeys(
+    ("solve.classify", "solve.plan", "relax.inputs", "relax.floor",
+     "solve.commit", "topology.build"), "the port's own layer spans")
 
 STATS_KEYS = ("cold_compiles", "warm_dispatches", "pad_dispatches",
               "pad_cells_actual", "pad_cells_padded", "bin_growths")
@@ -55,6 +61,20 @@ def planes(pkg):
 
 def _tree(span) -> tuple:
     return (span.name, tuple(_tree(c) for c in span.children))
+
+
+def _strip(tree, drop, stripped: set) -> tuple:
+    """``tree`` without the spans named in ``drop``, each one's children
+    lifted into its place; the names taken out go into ``stripped``."""
+    kids = []
+    for child in tree[1]:
+        child = _strip(child, drop, stripped)
+        if child[0] in drop:
+            stripped.add(child[0])
+            kids.extend(child[1])
+        else:
+            kids.append(child)
+    return (tree[0], tuple(kids))
 
 
 class _Names:
@@ -164,6 +184,8 @@ def capture(pkg, run, tmp_path):
         del devplane.LEDGER.record_dispatch
     traces = obs.RECORDER.traces()
     names = _Names()
+    drop = PORT_ONLY_SPANS if pkg == PORT else JAX_ONLY_SPANS
+    stripped: set = set()
     out = dict(
         decisions=seq,
         events=[_event(ev, names) for ev in
@@ -172,7 +194,8 @@ def capture(pkg, run, tmp_path):
                    for t in traces],
         stats={k: devplane.STATS[k] for k in STATS_KEYS},
         ledger=ledger,
-        trees=[_tree(t.root) for t in traces],
+        trees=[_strip(_tree(t.root), drop, stripped) for t in traces],
+        stripped=stripped,
     )
     obs.reset()
     devplane.reset()
@@ -299,6 +322,19 @@ def test_warm_growth_solve_planes_match_jax(tmp_path):
     assert got_res == want_res
     assert [_names(t) >= {"solve.dispatch_spec"} for t in got["trees"]] == [
         False, True]
+
+
+def test_port_only_spans_are_the_layer_spans(tmp_path, monkeypatch):
+    """The spans taken out of the port's trees are exactly the six layer
+    spans ``PORT_ONLY_SPANS`` names: with the LP floor on, a zonal-spread
+    provisioning round opens all six, and once they are stripped its
+    planes and trees equal the JAX package's."""
+    monkeypatch.setenv("KARPENTER_RELAX", "1")
+    got, _, _ = both(lambda pkg: op._provisioned(pkg, "zonal-spread"),
+                     tmp_path)
+    assert got["stripped"] == set(PORT_ONLY_SPANS) == {
+        "solve.classify", "solve.plan", "relax.inputs", "relax.floor",
+        "solve.commit", "topology.build"}
 
 
 def test_generated_names_are_numbered_not_compared():
