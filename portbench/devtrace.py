@@ -1,9 +1,10 @@
 """The traced run's profiled slice: a few decisions under ``torch.profiler``.
 
 ``Slice`` profiles the decisions run inside it (CPU and CUDA activity) and
-records, through ``system.record_compat``, the shapes and ``has`` rows of
-every compat launch they make. ``Slice.reduce`` turns the profiler's
-events and the decisions' span trees into:
+records, through the program side's ``record_compat`` (``system.py``), the
+shapes and ``has`` rows of every compat launch they make.
+``Slice.reduce`` turns the profiler's events and the decisions' span trees
+into:
 
 - ``kernels``: the CUDA kernel events (copies and fills excluded);
 - ``busy_s`` / ``window_s``: the union of all device activity inside the
@@ -15,27 +16,33 @@ events and the decisions' span trees into:
   innermost span the host was in (the round's name where the decision had
   no program span open, ``harness`` outside the round), the largest ten.
 
-The compat launches that ``ops/cuda_kernels.py`` counted must equal both
-the launches recorded and the compat kernel events in the trace;
+The compat launches that ``ops/cuda_kernels.py`` counted (the program
+side's ``compat_launches``; none where the side has no such count) must
+equal both the launches recorded and the compat kernel events in the trace;
 otherwise the profiler dropped records and ``reduce`` raises rather than
 report a slice that misses part of its work.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 
-from portbench import roofline, system
+from portbench import roofline
 
 COMPAT_KERNEL = "compat_kernel"
 _COPIES = ("Memcpy", "Memset")
 
 
 class Slice:
-    """``cuda`` False profiles the host alone (the CPU tests' runs)."""
+    """``cuda`` False profiles the host alone (the CPU tests' runs).
+    ``program`` is the side that decides: its ``compat_launches`` and
+    ``record_compat`` count and record the compat launches."""
 
-    def __init__(self, cuda: bool = True):
+    def __init__(self, cuda: bool = True, program=None):
         self.cuda = cuda
+        self._count = getattr(program, "compat_launches", lambda: 0)
+        self._record = getattr(program, "record_compat", None)
         self.calls: list = []
         self.traces: list = []
         self.spans_window: list = []  # (t0, t1) of each decision, host clock
@@ -46,8 +53,9 @@ class Slice:
 
         if self.cuda:
             torch.cuda.synchronize()
-        self._launches0 = system.compat_launches()
-        self._patch = system.record_compat(self.calls)
+        self._launches0 = self._count()
+        self._patch = (self._record(self.calls) if self._record is not None
+                       else contextlib.nullcontext())
         self._patch.__enter__()
         self._prof = profile(activities=[ProfilerActivity.CPU] + (
             [ProfilerActivity.CUDA] if self.cuda else []))
@@ -66,7 +74,7 @@ class Slice:
             torch.cuda.synchronize()
         self._prof.__exit__(et, ev, tb)
         self._patch.__exit__(et, ev, tb)
-        self.launches = system.compat_launches() - self._launches0
+        self.launches = self._count() - self._launches0
         return False
 
     def add(self, t0: float, t1: float, trace) -> None:

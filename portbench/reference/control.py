@@ -116,12 +116,17 @@ class Program:
         return ref.placed(results), len(results["errors"])
 
 
+def program(cfg: dict, plain_catalog: list, traffic: dict, device=None) -> Program:
+    """The control for the configuration, as ``run_cell`` makes a side."""
+    return Program(cfg, plain_catalog, traffic["topology"], device)
+
+
 def run(spec, cell: dict, seed: int, seconds: float, device=None) -> dict:
     """One run of ``cell`` with the control deciding, through the
     harness's own ``run_cell``: its window, its sample and its check."""
     from portbench.run import run_cell
 
-    return run_cell(spec, cell, seed, seconds, False, device=device, side=Program)
+    return run_cell(spec, cell, seed, seconds, False, device=device, side=program)
 
 
 def main(argv=None) -> int:

@@ -2,27 +2,31 @@
 
     python -m portbench --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
-Set-up builds the configuration's catalog and the cell's ring of batches
-from the seed (``gen.py``), the program's objects and one ``TorchSolver``
-on the card (``system.py``), and runs one decision over every batch of the
-ring, which builds the kernels on a checkout's first run and warms every
-shape the window will use. ``setup_s`` runs from the start of the process
-to the first timed decision.
+Every kind-specific piece comes from the mix's decision kind
+(``portbench/kinds/<kind>.py``, ``spec.Spec.kind``): the plain generator of
+its ring, the program side and the plain reference. Set-up builds the
+configuration's catalog (``gen.py``) and the cell's ring of batches from
+the seed (the kind's ``ring``), the program's objects and one
+``TorchSolver`` on the card (the kind's ``program``), and runs one
+decision over every batch of the ring, which builds the kernels on a
+checkout's first run and warms every shape the window will use.
+``setup_s`` runs from the start of the process to the first timed
+decision.
 
 The window is a closed loop: one decision, then the next, cycling the
 ring, until the decisions have taken ``--seconds`` and every batch has
-been decided once. Before each decision the harness hands the batch's
-pods back as they were made (``system.Batch.reset``); that time is the
-harness's, and the window's clock counts the decisions alone. With
+been decided once. Before each decision the harness hands the batch
+back as it was made (its ``reset``); that time is the harness's, and the
+window's clock counts the decisions alone. With
 ``--trace 1``, ``profile_decisions`` more decisions follow the window
 under the profiler (``devtrace.py``), and the per-layer metrics are read
 (``metrics/``): the span medians from the window's decisions, the
 device's from the profiled ones.
 
 After the window the peak device memory is read, the program's state is
-freed, and the plain reference (``reference/judge.py``) judges a sample
-of the window's answers drawn from the seed: the first decision of every
-batch and ``sample`` - ``ring`` more. ``correct`` holds when the answers
+freed, and the kind's plain reference judges a sample of the window's
+answers drawn from the seed: the first decision of every batch and
+``sample`` - ``ring`` more. ``correct`` holds when the answers
 break no guarantee: the one number compared, ``breaches``, beside its
 limit 0, is the last line on standard error and the last key of the
 result line (the count of each guarantee rides in ``run``).
@@ -40,7 +44,6 @@ import time
 from types import SimpleNamespace
 
 from portbench import gen
-from portbench.reference import judge as ref
 from portbench.spec import Spec
 
 # top-level module names the process that prints the result may not hold
@@ -84,24 +87,23 @@ def run_cell(spec: Spec, cell: dict, seed: int, seconds: float, trace: bool,
              detail: list | None = None) -> dict:
     """Set up, measure and check one run of ``cell``; returns the result
     line as a dict. ``device`` None is the card; the tests pass ``"cpu"``.
-    ``side`` is what decides: the program (``system.Program``, the
-    default) or a stand-in with its interface, such as the control
+    ``side`` makes what decides, ``side(cfg, plain_catalog, traffic,
+    device)``: the program (the kind's ``program``, the default) or a
+    stand-in with its interface, such as the control
     (``reference/control.py``). ``detail``, where given, receives one
     record per decision: its milliseconds, the collector's, its spans."""
-    if side is None:
-        from portbench import system
-
-        side = system.Program
     t_start = time.perf_counter() if t_start is None else t_start
     cfg, traffic = spec.config(cell), spec.traffic(cell)
+    kind = spec.kind(traffic)
+    side = kind.program if side is None else side
     plain_catalog = gen.catalog(cfg)
     # the collector sleeps while the inputs are made (hundreds of thousands
     # of young objects, none garbage) and runs as usual from the warm-up on
     gc.disable()
     try:
-        ring = gen.ring(traffic, seed)
-        program = side(cfg, plain_catalog, traffic["topology"], device)
-        batches = [program.batch(pods) for pods in ring]
+        ring = kind.ring(cfg, plain_catalog, traffic, seed)
+        program = side(cfg, plain_catalog, traffic, device)
+        batches = [program.batch(plain) for plain in ring]
     finally:
         gc.enable()
     cuda = program.cuda
@@ -145,6 +147,7 @@ def run_cell(spec: Spec, cell: dict, seed: int, seconds: float, trace: bool,
                "profiled": slice_ is not None, "gc_ms": gc_clock.ms - gc0}
         if (trace or detail is not None) and tr is not None:
             rec["spans"] = _span_ms(tr)
+            rec["span_attrs"] = _span_attrs(tr)
             rec["top_ms"] = sum((c.dur or 0.0) for c in tr.root.children) * 1e3
         records.append(rec)
         if slice_ is not None:
@@ -164,7 +167,7 @@ def run_cell(spec: Spec, cell: dict, seed: int, seconds: float, trace: bool,
         # from the window's decisions before it
         from portbench.devtrace import Slice
 
-        with Slice(cuda) as slice_:
+        with Slice(cuda, program) as slice_:
             for _ in range(traffic["profile_decisions"]):
                 decide(n, slice_)
                 n += 1
@@ -180,18 +183,16 @@ def run_cell(spec: Spec, cell: dict, seed: int, seconds: float, trace: bool,
     if cuda:
         torch.cuda.empty_cache()
 
-    # the check: the plain reference judges the sampled answers
-    cat = ref.Catalog(cfg, plain_catalog)
-    breaches = dict.fromkeys(ref.CHECKS, 0)
+    # the check: the kind's plain reference judges the sampled answers
+    cat = kind.Catalog(cfg, plain_catalog)
+    breaches = dict.fromkeys(kind.CHECKS, 0)
     for i, answer in kept.items():
-        for k, v in ref.judge(cfg, cat, ring[i % R], answer).items():
+        for k, v in kind.judge(cfg, cat, ring[i % R], answer).items():
             breaches[k] += v
-    first = [kept[i] for i in range(R)]
-    usd = sum(ref.cost(cat, a) for a in first)
-    placed_ring = sum(ref.placed(a) for a in first)
+    usd = sum(kind.cost(cat, ring[i], kept[i]) for i in range(R))
+    placed_ring = sum(kind.placed(ring[i], kept[i]) for i in range(R))
     # one number is compared: the breaches of every guarantee together,
-    # exact (limit 0); the bfloat16 control reads thousands in
-    # burst-50k and ten or more in the 500-pod cells (PERF.md)
+    # exact (limit 0); the bfloat16 controls' readings are in PERF.md
     checks = {"breaches": {"value": sum(breaches.values()), "limit": 0}}
     correct = all(c["value"] <= c["limit"] for c in checks.values())
 
@@ -268,6 +269,20 @@ def _span_ms(trace) -> dict:
         if sp is trace.root:
             continue
         out[sp.name] = out.get(sp.name, 0.0) + (sp.dur or 0.0) * 1e3
+    return out
+
+
+def _span_attrs(trace) -> list:
+    """``[name, attributes]`` of every program span that has numbers or
+    words as attributes, in the trace's order."""
+    out = []
+    for sp in trace.spans():
+        if sp is trace.root or not sp.attrs:
+            continue
+        attrs = {k: v for k, v in sp.attrs.items()
+                 if isinstance(v, (int, float, str, bool))}
+        if attrs:
+            out.append([sp.name, attrs])
     return out
 
 

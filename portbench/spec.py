@@ -4,9 +4,12 @@ The harness is driven by data: a cell names a configuration (its file is
 the ``file`` of that entry of ``configs``), a traffic mix (the file
 ``portbench/traffic/<traffic>.json``) and, through the metrics that list
 it, the readers ``portbench/metrics/<name>.py``, all beside the
-``BENCHMARK.json`` read. Adding a cell, a
-configuration, a mix or a per-layer metric adds files and entries; no
-file of the harness changes.
+``BENCHMARK.json`` read. The mix names its decision kind under ``kind``
+(``provisioning`` where it names none): the file
+``portbench/kinds/<kind>.py``, which supplies the kind's plain generator,
+its program side and its plain reference (``kinds/provisioning.py`` says
+how). Adding a cell, a configuration, a mix, a per-layer metric or a
+decision kind adds files and entries; no file of the harness changes.
 """
 
 from __future__ import annotations
@@ -56,12 +59,21 @@ class Spec:
 
     def reader(self, name: str):
         """The ``read(ctx)`` function of ``portbench/metrics/<name>.py``."""
-        path = self.base / "metrics" / f"{name}.py"
-        spec = importlib.util.spec_from_file_location(
-            f"portbench.metrics.{name}", path)
-        module = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(module)
-        return module.read
+        return _load(self.base / "metrics" / f"{name}.py",
+                     f"portbench.metrics.{name}").read
+
+    def kind(self, traffic: dict):
+        """The module ``portbench/kinds/<kind>.py`` of the mix's decision
+        kind."""
+        name = traffic.get("kind", "provisioning")
+        return _load(self.base / "kinds" / f"{name}.py", f"portbench.kinds.{name}")
+
+
+def _load(path: Path, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def _in(metric: dict, cell: dict) -> bool:

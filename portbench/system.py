@@ -201,6 +201,14 @@ class Program:
         """The engine of the last decision (``last_device_stats``)."""
         return self.solver.last_device_stats.get("engine")
 
+    @staticmethod
+    def compat_launches() -> int:
+        return compat_launches()
+
+    @staticmethod
+    def record_compat(calls: list):
+        return record_compat(calls)
+
 
 def _plain_requirements(reqs) -> dict:
     """{key: [complement, sorted values]} of a ``Requirements``."""

@@ -15,10 +15,10 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[2]
 
-# the cells at a size a test run holds: pods per batch, batches per ring
-# and instance types
+# the cells at a size a test run holds: pods per batch (nodes per fleet),
+# batches per ring and instance types
 SMALL = {"burst-50k": (600, 2, 60), "diverse-500": (120, 2, 40),
-         "generic-500": (100, 2, 40)}
+         "generic-500": (100, 2, 40), "consolidate-2000": (48, 2, 64)}
 
 
 def pytest_configure(config):
@@ -38,7 +38,7 @@ def make_root(dest: Path, small: bool = True) -> Path:
     """A copy of ``BENCHMARK.json`` and the benchmark's data under
     ``dest``, its cells cut to ``SMALL`` when ``small``; returns the path
     of the copied ``BENCHMARK.json``."""
-    for sub in ("configs", "traffic", "metrics"):
+    for sub in ("configs", "traffic", "metrics", "kinds"):
         shutil.copytree(ROOT / "portbench" / sub, dest / "portbench" / sub)
     shutil.copy(ROOT / "BENCHMARK.json", dest / "BENCHMARK.json")
     if small:
@@ -47,7 +47,8 @@ def make_root(dest: Path, small: bool = True) -> Path:
             pods, ring, types = SMALL[cell["name"]]
             tpath = dest / "portbench" / "traffic" / f"{cell['traffic']}.json"
             traffic = json.loads(tpath.read_text())
-            traffic.update(pods=pods, ring=ring, sample=ring + 1)
+            size = "nodes" if "nodes" in traffic else "pods"
+            traffic.update({size: pods, "ring": ring, "sample": ring + 1})
             tpath.write_text(json.dumps(traffic))
             entry = next(c for c in doc["configs"] if c["name"] == cell["config"])
             cpath = dest / entry["file"]

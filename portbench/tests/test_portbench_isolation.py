@@ -64,3 +64,46 @@ def test_the_reference_loads_nothing_of_the_program(small_root):
     assert proc.returncode == 0, proc.stderr[-2000:]
     loaded = set(json.loads(proc.stdout.strip().splitlines()[-1]))
     assert not loaded & (BANNED | {"karpenter_tpu_torch"})
+
+
+@pytest.mark.parametrize("kind", sorted(p.stem for p in (ROOT / "portbench" / "kinds").glob("*.py")
+                                        if p.stem != "__init__"))
+def test_a_kind_but_its_program_side_loads_nothing_of_the_program(small_root, kind):
+    """Every kind's module, its plain generator and its plain reference
+    load nothing of the program; only its ``program`` does."""
+    code = (
+        "import json, sys\n"
+        "from portbench import gen\n"
+        "from portbench.spec import Spec\n"
+        f"spec = Spec({str(small_root)!r})\n"
+        f"cell = next(c for c in spec.cells.values() if spec.traffic(c).get('kind', 'provisioning') == {kind!r})\n"
+        "cfg, traffic = spec.config(cell), spec.traffic(cell)\n"
+        "k = spec.kind(traffic)\n"
+        "plain_catalog = gen.catalog(cfg)\n"
+        "ring = k.ring(cfg, plain_catalog, traffic, 5)\n"
+        "cat = k.Catalog(cfg, plain_catalog)\n"
+        "assert set(k.CHECKS) and k.placed(ring[0], {'claims': [], 'errors': [], 'retired': [], "
+        "'replacements': [], 'placement': {}}) >= 0\n"
+        "print(json.dumps(sorted({m.split('.')[0] for m in sys.modules})))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    loaded = set(json.loads(proc.stdout.strip().splitlines()[-1]))
+    assert not loaded & (BANNED | {"karpenter_tpu_torch"})
+
+
+def test_a_consolidation_run_loads_neither_jax_nor_the_jax_package(small_root):
+    code = (
+        "import json, sys\n"
+        "from portbench import run\n"
+        "from portbench.spec import Spec\n"
+        f"spec = Spec({str(small_root)!r})\n"
+        "out = run.run_cell(spec, spec.cell('consolidate-2000'), 5, 0.05, True, device='cpu')\n"
+        "print(json.dumps([out['correct'], run.banned_modules(),\n"
+        "                  sorted({m.split('.')[0] for m in sys.modules})]))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    correct, banned, loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert correct and banned == [] and not set(loaded) & BANNED
+    assert "karpenter_tpu_torch" in loaded
