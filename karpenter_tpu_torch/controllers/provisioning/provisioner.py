@@ -415,7 +415,8 @@ class Provisioner:
                         pods=total_refused,
                         reasons=",".join(sorted(refused)),
                     )
-        results.truncate_instance_types()
+        with obs.span("provision.truncate", claims=len(results.new_claims)):
+            results.truncate_instance_types()
         return results
 
     def admission_plane(self):

@@ -510,6 +510,9 @@ class TorchSolver(Solver):
                 group_row_cache_misses=_TZ_STATS["group_row_misses"] - rows0[1],
                 **stages,
             )
+            if esnap is not None:
+                _TZ_STATS["existing_solves"] += 1
+                _TZ_STATS["existing_placed"] += self.last_device_stats["existing_pods"]
             # commit device placements onto the existing nodes (deferred so a
             # doubled re-run cannot double-apply); the host pass then sees the
             # updated availability/requirements (existingnode.go Add:64)

@@ -18,8 +18,11 @@ The device path (ops/waves.py) compiles the self-selecting common cases of
 these groups into per-zone sub-groups / per-bin caps; everything else runs
 through this host engine.
 
-A ``Topology`` is built inside the port's ``topology.build`` span, which
-the JAX package does not open.
+A ``Topology`` is built inside the port's ``topology.build`` span, and
+each count of a group's domains from the cluster view
+(``_count_domains``, ``_update_inverse_affinities``) inside a
+``topology.count`` span whose ``pods`` attribute is the running pods the
+count scanned; the JAX package opens neither.
 """
 
 from __future__ import annotations
@@ -396,10 +399,15 @@ class Topology:
         return frozenset(out)
 
     def _update_inverse_affinities(self):
-        for pod, node_labels in self.cluster.pods_with_anti_affinity():
-            if pod.uid in self.excluded_pods:
-                continue
-            self._update_inverse_anti_affinity(pod, node_labels)
+        scanned = 0
+        with obs.span("topology.count") as sp:
+            for pod, node_labels in self.cluster.pods_with_anti_affinity():
+                scanned += 1
+                if pod.uid in self.excluded_pods:
+                    continue
+                self._update_inverse_anti_affinity(pod, node_labels)
+            if sp is not None:
+                sp.attrs = dict(pods=scanned)
 
     def _update_inverse_anti_affinity(self, pod, node_labels):
         """Track domains occupied by pods DECLARING anti-affinity so pods
@@ -430,17 +438,22 @@ class Topology:
         (topology.go countDomains:256)."""
         if self.cluster is None:
             return
-        for pod, node_labels in self.cluster.pods_matching(tg.namespaces, tg.selector):
-            if ignored_for_topology(pod) or pod.uid in self.excluded_pods:
-                continue
-            domain = (node_labels or {}).get(tg.key)
-            if domain is None and tg.key == wk.HOSTNAME_LABEL:
-                domain = pod.node_name
-            if domain is None:
-                continue
-            if not tg.node_filter.matches_labels(node_labels or {}):
-                continue
-            tg.record(domain)
+        scanned = 0
+        with obs.span("topology.count") as sp:
+            for pod, node_labels in self.cluster.pods_matching(tg.namespaces, tg.selector):
+                scanned += 1
+                if ignored_for_topology(pod) or pod.uid in self.excluded_pods:
+                    continue
+                domain = (node_labels or {}).get(tg.key)
+                if domain is None and tg.key == wk.HOSTNAME_LABEL:
+                    domain = pod.node_name
+                if domain is None:
+                    continue
+                if not tg.node_filter.matches_labels(node_labels or {}):
+                    continue
+                tg.record(domain)
+            if sp is not None:
+                sp.attrs = dict(pods=scanned)
 
     def _matching_topologies(self, pod, requirements):
         out = [tg for tg in self.topologies.values() if pod.uid in tg.owners]

@@ -2,8 +2,10 @@
 
 The port's copy of ``karpenter_tpu/obs/trace.py`` (imports changed).
 The text below is the JAX package's, with the port's
-names: on the card a ``device`` span brackets the eager launch of the
-pack loop (``solve.dispatch``) and the one readback (``solve.block``).
+names: on the card a ``device`` span brackets a dispatch's launches,
+feasibility's two compat kernels and the one pack kernel
+(``solve.dispatch``), and the one readback, which waits for the pack
+kernel's device time (``solve.block``).
 
 The perf stack is a ladder of caches, delta paths, and
 probe-confirm rungs whose SLOW edges — opaque snapshot rebuilds, extra
@@ -64,12 +66,23 @@ also lays a ``gpu_user_annotation`` event over the device's timeline,
 which a reader of device activity counts as a kernel and as busy time.
 With no profiler recording a span pays one check and makes no range.
 
+The port's own layer spans, which the JAX package does not open (the
+obs parity tests strip them): ``solve.classify``; ``solve.plan`` holding
+``relax.inputs`` and ``relax.floor``; ``solve.commit``;
+``topology.build``; ``topology.count``, one per count of a topology
+group's domains from the cluster view (models/topology.py, attribute
+``pods``); ``existing.capacity`` and ``existing.topology``, once each
+under every ``tensorize.existing`` (ops/tensorize.py); and
+``provision.truncate``, the truncation of each new claim's instance types
+at the end of ``Provisioner.schedule`` (attribute ``claims``).
+
 Safety: span enter/exit must NEVER execute inside the pack loop
 (``ops/kernels.py`` ``pack``/``solve_step``/``probe_step``) or
-``ops/cuda_kernels.py``: a call per pack step would add host work to a
-loop that is already launch-bound (the JAX package's GL403–GL406 forbid
-the same calls in traced code; ``tests/test_torch_obs.py`` scans the two
-modules).
+``ops/cuda_kernels.py``: a call per pack step would add host work to
+every step of the plain version, and on the card the loop is one kernel
+launch with no host step to hold a span (the JAX package's GL403–GL406
+forbid the same calls in traced code; ``tests/test_torch_obs.py`` scans
+the two modules).
 
 Knobs (resolved at import; ``configure()`` overrides in-process):
 

@@ -59,6 +59,12 @@ WORD = 32
 UNCAPPED = 1 << 30
 SPREAD_OWNED_MIN = 1 << 29
 
+# an existing node's availability above minus this is a full node, not an
+# overflow: requests are whole milli-cpu and bytes, and allocatable minus a
+# float sum of them lands a rounding residue (~1e-15) below zero on a node
+# filled exactly
+NEGATIVE_AVAIL_TOL = 1e-9
+
 # process-wide tensorize accounting — a plain dict, echoed per solve in
 # TorchSolver.last_device_stats
 STATS = {
@@ -74,6 +80,11 @@ STATS = {
     # decoder merged-mask re-checks skipped because the bin's requirement
     # set was provably decomposable (models/solver.py _compat_entry)
     "decode_exact_skips": 0,
+    # device solves over existing nodes, and the pods they committed onto
+    # those nodes (models/solver.py solve: last_device_stats
+    # ["existing_pods"], summed)
+    "existing_solves": 0,
+    "existing_placed": 0,
 }
 
 
@@ -417,7 +428,10 @@ def tensorize_existing(snap: DeviceSnapshot, existing_nodes, device_plan=None,
     """Compile ExistingNode capacity into the kernel's pre-loaded-bin
     tensors. `snap` supplies the interned vocabulary/resource axes;
     `device_plan` (waves) supplies the conflict/spread class indices whose
-    per-node counts come from each TopologyGroup's hostname domain map."""
+    per-node counts come from each TopologyGroup's hostname domain map.
+    Its two stages are the spans ``existing.capacity`` (availability,
+    requirement rows, group-node compatibility) and ``existing.topology``
+    (the class counts), each opened once a call."""
     with obs.span("tensorize.existing", kind="cache",
                   nodes=len(existing_nodes)):
         return _tensorize_existing(snap, existing_nodes, device_plan,
@@ -447,74 +461,81 @@ def _tensorize_existing(snap, existing_nodes, device_plan, registry):
 
     e_mask = np.zeros((E, K, snap.W), dtype=np.uint32)
     e_has = np.zeros((E, K), dtype=bool)
-    negative = 0
-    neg_example = None
-    for e, node in enumerate(existing_nodes):
-        avail = resutil.subtract(node.cached_available, node.requests)
-        for r, v in avail.items():
-            if r in snap.resources:
-                if v < 0.0:
-                    # a bound-pod total exceeding allocatable is a capacity-
-                    # accounting bug upstream — clamping keeps the kernel
-                    # sound (a full node just admits nothing) but the clamp
-                    # must be VISIBLE, not a silent max()
-                    negative += 1
-                    if neg_example is None:
-                        neg_example = (node.state_node.name, r, v)
-                e_avail[e, snap.resources.index(r)] = max(v, 0.0)
-        e_mask[e], e_has[e], _ = snap.mask_set(node.requirements)
-        e_npods[e] = len(node.state_node.pods)
-        hostname = node.state_node.hostname
-        if device_plan is not None:
-            for c, pair in enumerate(device_plan.anti_tgs_by_class):
-                direct, inverse = pair
-                if direct.domains.get(hostname, 0) > 0:
-                    e_match[e, c // WORD] |= np.uint32(1 << (c % WORD))
-                if inverse is not None and inverse.domains.get(hostname, 0) > 0:
-                    e_decl[e, c // WORD] |= np.uint32(1 << (c % WORD))
-            for c, tg in enumerate(device_plan.spread_tgs_by_class):
-                e_scnt[e, c] = tg.domains.get(hostname, 0)
-            for c, tg in enumerate(device_plan.aff_tgs_by_class):
-                e_aff[e, c] = tg.domains.get(hostname, 0)
+    # capacity, requirement rows and group-node compatibility of every node
+    with obs.span("existing.capacity"):
+        negative = 0
+        neg_example = None
+        for e, node in enumerate(existing_nodes):
+            avail = resutil.subtract(node.cached_available, node.requests)
+            for r, v in avail.items():
+                if r in snap.resources:
+                    if v < -NEGATIVE_AVAIL_TOL:
+                        # a bound-pod total exceeding allocatable is a capacity-
+                        # accounting bug upstream — clamping keeps the kernel
+                        # sound (a full node just admits nothing) but the clamp
+                        # must be VISIBLE, not a silent max()
+                        negative += 1
+                        if neg_example is None:
+                            neg_example = (node.state_node.name, r, v)
+                    e_avail[e, snap.resources.index(r)] = max(v, 0.0)
+            e_mask[e], e_has[e], _ = snap.mask_set(node.requirements)
+            e_npods[e] = len(node.state_node.pods)
 
-    # strict requirement compatibility over the interned masks: every key
-    # the group requires must be defined on the node AND overlap. Values a
-    # node carries outside the vocabulary mask to zero, which is exact for
-    # IN (the pod's interned values genuinely differ) and conservative for
-    # complement operators (routes to the host loop).
-    for g in range(G):
-        gm, gh = snap.g_mask[g], snap.g_has[g]
-        # a key overlaps if ANY word overlaps; required keys must be defined
-        ov = ((e_mask & gm[None]) != 0).any(axis=2)  # [E,K]
-        ge_ok[g] = (~gh[None, :] | (e_has & ov)).all(axis=1)
-
-    # taints + hostname checks: nodes share a handful of distinct taint
-    # profiles, so toleration is evaluated once per (profile, group), not
-    # per (node, group) — the E×G Python loop collapses to
-    # O(distinct-profiles × G) (a fleet of 1000 nodes typically has <5)
-    hreqs = [
-        snap.group_reqs[g].get_req(wk.HOSTNAME_LABEL)
-        if wk.HOSTNAME_LABEL in snap.group_reqs[g]
-        else None
-        for g in range(G)
-    ]
-    tol_cache: dict = {}  # taint fingerprint -> [G] bool tolerates
-    for e, node in enumerate(existing_nodes):
-        taints = node.state_node.taints()
-        fp = tuple((t.key, t.value, t.effect) for t in taints)
-        tol = tol_cache.get(fp)
-        if tol is None:
-            ts = Taints(taints)
-            tol = np.array(
-                [ts.tolerates(snap.groups[g][0]) is None for g in range(G)],
-                dtype=bool,
-            )
-            tol_cache[fp] = tol
-        ge_ok[:, e] &= tol
+        # strict requirement compatibility over the interned masks: every key
+        # the group requires must be defined on the node AND overlap. Values a
+        # node carries outside the vocabulary mask to zero, which is exact for
+        # IN (the pod's interned values genuinely differ) and conservative for
+        # complement operators (routes to the host loop).
         for g in range(G):
-            if hreqs[g] is not None and ge_ok[g, e]:
-                if not hreqs[g].has(node.state_node.hostname):
-                    ge_ok[g, e] = False
+            gm, gh = snap.g_mask[g], snap.g_has[g]
+            # a key overlaps if ANY word overlaps; required keys must be defined
+            ov = ((e_mask & gm[None]) != 0).any(axis=2)  # [E,K]
+            ge_ok[g] = (~gh[None, :] | (e_has & ov)).all(axis=1)
+
+        # taints + hostname checks: nodes share a handful of distinct taint
+        # profiles, so toleration is evaluated once per (profile, group), not
+        # per (node, group) — the E×G Python loop collapses to
+        # O(distinct-profiles × G) (a fleet of 1000 nodes typically has <5)
+        hreqs = [
+            snap.group_reqs[g].get_req(wk.HOSTNAME_LABEL)
+            if wk.HOSTNAME_LABEL in snap.group_reqs[g]
+            else None
+            for g in range(G)
+        ]
+        tol_cache: dict = {}  # taint fingerprint -> [G] bool tolerates
+        for e, node in enumerate(existing_nodes):
+            taints = node.state_node.taints()
+            fp = tuple((t.key, t.value, t.effect) for t in taints)
+            tol = tol_cache.get(fp)
+            if tol is None:
+                ts = Taints(taints)
+                tol = np.array(
+                    [ts.tolerates(snap.groups[g][0]) is None for g in range(G)],
+                    dtype=bool,
+                )
+                tol_cache[fp] = tol
+            ge_ok[:, e] &= tol
+            for g in range(G):
+                if hreqs[g] is not None and ge_ok[g, e]:
+                    if not hreqs[g].has(node.state_node.hostname):
+                        ge_ok[g, e] = False
+
+    # the waves plan's conflict, spread and affinity classes: each node's
+    # counts from the classes' hostname domain maps
+    with obs.span("existing.topology"):
+        if device_plan is not None:
+            for e, node in enumerate(existing_nodes):
+                hostname = node.state_node.hostname
+                for c, pair in enumerate(device_plan.anti_tgs_by_class):
+                    direct, inverse = pair
+                    if direct.domains.get(hostname, 0) > 0:
+                        e_match[e, c // WORD] |= np.uint32(1 << (c % WORD))
+                    if inverse is not None and inverse.domains.get(hostname, 0) > 0:
+                        e_decl[e, c // WORD] |= np.uint32(1 << (c % WORD))
+                for c, tg in enumerate(device_plan.spread_tgs_by_class):
+                    e_scnt[e, c] = tg.domains.get(hostname, 0)
+                for c, tg in enumerate(device_plan.aff_tgs_by_class):
+                    e_aff[e, c] = tg.domains.get(hostname, 0)
 
     if negative:
         import logging

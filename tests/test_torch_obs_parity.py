@@ -45,7 +45,8 @@ from tests.test_torch_operator import JAX, PORT, Kit
 JAX_ONLY_SPANS: dict = {}
 PORT_ONLY_SPANS: dict = dict.fromkeys(
     ("solve.classify", "solve.plan", "relax.inputs", "relax.floor",
-     "solve.commit", "topology.build"), "the port's own layer spans")
+     "solve.commit", "topology.build", "topology.count", "existing.capacity",
+     "existing.topology", "provision.truncate"), "the port's own layer spans")
 
 STATS_KEYS = ("cold_compiles", "warm_dispatches", "pad_dispatches",
               "pad_cells_actual", "pad_cells_padded", "bin_growths")
@@ -325,16 +326,24 @@ def test_warm_growth_solve_planes_match_jax(tmp_path):
 
 
 def test_port_only_spans_are_the_layer_spans(tmp_path, monkeypatch):
-    """The spans taken out of the port's trees are exactly the six layer
+    """The spans taken out of the port's trees are exactly the ten layer
     spans ``PORT_ONLY_SPANS`` names: with the LP floor on, a zonal-spread
-    provisioning round opens all six, and once they are stripped its
-    planes and trees equal the JAX package's."""
+    provisioning round opens all but the two existing-node stages (its
+    cluster holds no node when it solves), a single-node delete's
+    confirming solve over the cluster's nodes opens those two, and once
+    they are stripped the planes and trees equal the JAX package's."""
     monkeypatch.setenv("KARPENTER_RELAX", "1")
     got, _, _ = both(lambda pkg: op._provisioned(pkg, "zonal-spread"),
                      tmp_path)
-    assert got["stripped"] == set(PORT_ONLY_SPANS) == {
+    existing = {"existing.capacity", "existing.topology"}
+    assert got["stripped"] == set(PORT_ONLY_SPANS) - existing
+    live, _, _ = both(lambda pkg: tuple(
+        dis.SHAPES["single-node-delete"][0](Kit(pkg))[1].commands), tmp_path)
+    assert existing <= live["stripped"] <= set(PORT_ONLY_SPANS)
+    assert set(PORT_ONLY_SPANS) == {
         "solve.classify", "solve.plan", "relax.inputs", "relax.floor",
-        "solve.commit", "topology.build"}
+        "solve.commit", "topology.build", "topology.count",
+        "existing.capacity", "existing.topology", "provision.truncate"}
 
 
 def test_generated_names_are_numbered_not_compared():
