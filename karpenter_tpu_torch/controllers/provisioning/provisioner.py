@@ -22,6 +22,7 @@ from __future__ import annotations
 
 from karpenter_tpu_torch import obs
 from karpenter_tpu_torch.api import labels as wk
+from karpenter_tpu_torch.cloudprovider.offering_table import STATS as truncate_stats
 from karpenter_tpu_torch.controllers.provisioning.batcher import Batcher
 from karpenter_tpu_torch.models import ClaimTemplate
 from karpenter_tpu_torch.models.topology import Topology
@@ -415,8 +416,12 @@ class Provisioner:
                         pods=total_refused,
                         reasons=",".join(sorted(refused)),
                     )
-        with obs.span("provision.truncate", claims=len(results.new_claims)):
+        evals, hits = truncate_stats["compat_evals"], truncate_stats["memo_hits"]
+        with obs.span("provision.truncate", claims=len(results.new_claims)) as sp:
             results.truncate_instance_types()
+            if sp is not None:
+                sp.attrs["compat_evals"] = truncate_stats["compat_evals"] - evals
+                sp.attrs["memo_hits"] = truncate_stats["memo_hits"] - hits
         return results
 
     def admission_plane(self):

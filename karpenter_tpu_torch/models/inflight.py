@@ -17,8 +17,8 @@ from karpenter_tpu_torch.api import labels as wk
 from karpenter_tpu_torch.cloudprovider.types import (
     filter_instance_types,
     satisfies_min_values,
-    truncate_instance_types,
 )
+from karpenter_tpu_torch.cloudprovider.offering_table import OfferingTable
 from karpenter_tpu_torch.scheduling import (
     IN,
     HostPortUsage,
@@ -144,8 +144,14 @@ class InFlightNodeClaim:
         (nodeclaim.go FinalizeScheduling)."""
         self.requirements.pop(wk.HOSTNAME_LABEL, None)
 
-    def truncate_instance_types(self, max_items: int = MAX_INSTANCE_TYPES):
-        out, err = truncate_instance_types(self.instance_types, self.requirements, max_items)
+    def truncate_instance_types(self, max_items: int = MAX_INSTANCE_TYPES, table=None):
+        """Keep the ``max_items`` cheapest types (types.py
+        ``truncate_instance_types``), read from ``table``, an
+        :class:`OfferingTable` over at least this claim's types; one of
+        its own where None."""
+        if table is None:
+            table = OfferingTable(self.instance_types)
+        out, err = table.truncate(self.instance_types, self.requirements, max_items)
         if err is None:
             self.instance_types = out
         return err

@@ -11,6 +11,7 @@ no-accelerator fallback solver.
 
 from __future__ import annotations
 
+from karpenter_tpu_torch.cloudprovider.offering_table import OfferingTable
 from karpenter_tpu_torch.models.inflight import ClaimTemplate, InFlightNodeClaim
 from karpenter_tpu_torch.models.preferences import Preferences
 from karpenter_tpu_torch.models.queue import SchedulingQueue
@@ -47,10 +48,13 @@ class SchedulerResults:
         return not self.pod_errors
 
     def truncate_instance_types(self, max_items=None):
+        """Truncate every new claim's types from one offering table over
+        the union of their types (cloudprovider/offering_table.py)."""
         from karpenter_tpu_torch.models.inflight import MAX_INSTANCE_TYPES
 
+        table = OfferingTable(it for c in self.new_claims for it in c.instance_types)
         for claim in self.new_claims:
-            claim.truncate_instance_types(max_items or MAX_INSTANCE_TYPES)
+            claim.truncate_instance_types(max_items or MAX_INSTANCE_TYPES, table=table)
         return self
 
     def node_count(self) -> int:

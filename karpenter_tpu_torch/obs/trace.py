@@ -74,7 +74,9 @@ group's domains from the cluster view (models/topology.py, attribute
 ``pods``); ``existing.capacity`` and ``existing.topology``, once each
 under every ``tensorize.existing`` (ops/tensorize.py); and
 ``provision.truncate``, the truncation of each new claim's instance types
-at the end of ``Provisioner.schedule`` (attribute ``claims``).
+at the end of ``Provisioner.schedule`` (attributes ``claims``, and
+``compat_evals`` and ``memo_hits``, its share of
+cloudprovider/offering_table.py ``STATS``).
 
 Safety: span enter/exit must NEVER execute inside the pack loop
 (``ops/kernels.py`` ``pack``/``solve_step``/``probe_step``) or

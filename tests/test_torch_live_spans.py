@@ -210,14 +210,27 @@ def test_only_an_overflow_is_a_negative_availability(device_path, used, fires):
     assert [k for k, _, _ in trace.anomalies] == (["negative-avail"] if fires else [])
 
 
-def test_provision_truncate_closes_each_schedule(device_path):
+def test_provision_truncate_closes_each_schedule(device_path, monkeypatch):
     """The provisioner's round: ``provision.truncate`` once a
     ``Provisioner.schedule``, after the topology and the solve, with the
-    count of new claims it truncated."""
+    count of new claims it truncated and its offering table's
+    compatibility lookups, ``compatible`` calls and memo hits as the
+    table counts them (cloudprovider/offering_table.py ``STATS``)."""
+    from karpenter_tpu_torch.cloudprovider import offering_table
     from tests import test_torch_operator as op
 
+    lookups = []
+    compatible = offering_table.OfferingTable._compatible
+
+    def counted(self, reqs, s):
+        lookups.append(s)
+        return compatible(self, reqs, s)
+
+    monkeypatch.setattr(offering_table.OfferingTable, "_compatible", counted)
+    before = dict(offering_table.STATS)
     op._provisioned(op.PORT, "batch-packs")
-    rounds = [t for t in obs.RECORDER.traces() if t.name == "provision"
+    traces = obs.RECORDER.traces()
+    rounds = [t for t in traces if t.name == "provision"
               and any(c.name == "provision.topology" for c in t.root.children)]
     assert rounds
     for t in rounds:
@@ -226,3 +239,9 @@ def test_provision_truncate_closes_each_schedule(device_path):
         assert names.index("provision.truncate") > names.index("provision.topology")
         trunc = _all(t.root, "provision.truncate")[0]
         assert trunc.attrs["claims"] >= 1
+        assert trunc.attrs["compat_evals"] >= 1
+    spans = [sp for t in traces for sp in _all(t.root, "provision.truncate")]
+    total = {k: sum(sp.attrs[k] for sp in spans)
+             for k in ("claims", "compat_evals", "memo_hits")}
+    assert total["compat_evals"] + total["memo_hits"] == len(lookups)
+    assert total == {k: offering_table.STATS[k] - before[k] for k in total}
