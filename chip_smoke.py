@@ -2484,15 +2484,15 @@ def _median_ms(fn, reps: int, sync=None) -> tuple:
 
 
 def _gate(solver, args_np) -> str:
-    """The rung the default gates send a solve of these arguments to:
-    ``host`` (the batch is at most the host cutoff), ``native/<reason>``
-    or ``device``."""
-    from karpenter_tpu_torch.models import solver as msolver
+    """The rung the gates (``ops/engines.py``) send a solve of these
+    arguments to: ``host`` (the batch is at most the host cutoff),
+    ``native/<reason>`` or ``device``."""
+    from karpenter_tpu_torch.ops import engines
 
     total = int(np.asarray(args_np["g_count"]).sum())
-    if total <= msolver.HOST_CUTOFF_PODS:
+    if total <= engines.host_cutoff():
         return "host"
-    reason = solver._native_reason(args_np)
+    reason = solver.native_reason(args_np)
     return "device" if reason is None else f"native/{reason}"
 
 
@@ -2508,8 +2508,8 @@ def crossover(kernels, cuda_kernels) -> dict:
 
     from karpenter_tpu_torch import native
     from karpenter_tpu_torch.models import TorchSolver
-    from karpenter_tpu_torch.models import solver as msolver
     from karpenter_tpu_torch.ops import consolidate as cons
+    from karpenter_tpu_torch.ops import engines
 
     card, cpu = TorchSolver(), TorchSolver(device="cpu")
     sync = torch.cuda.synchronize
@@ -2576,7 +2576,7 @@ def crossover(kernels, cuda_kernels) -> dict:
                   "differ")
     G = int((shared_np["g_demand"].max(1) > 0).sum())
     T = int((shared_np["t_alloc"].max(1) > 0).sum())
-    gate = "native" if G * T < msolver.DEVICE_MIN_WORK else "device"
+    gate = "native" if engines.probe_native(G, T) else "device"
     rows.append(dict(name="probe chunk", rows=n, Gp=Gp, Ep=Ep, max_bins=mb,
                      gate=gate, native_ms=native_ms, card_ms=card_ms,
                      cpu_ms=cpu_ms, native_equal={"placed_g": True,
@@ -3347,11 +3347,7 @@ def batched_vs_single(rows: list, kernels) -> dict:
     the outputs equal."""
     import torch
 
-    from karpenter_tpu_torch.models.solver import (
-        TorchSolver,
-        batched_invoke,
-        packed_solve,
-    )
+    from karpenter_tpu_torch.models.solver import batched_invoke
     from karpenter_tpu_torch.ops import cuda_kernels
 
     dev = torch.device("cuda")
@@ -3364,7 +3360,7 @@ def batched_vs_single(rows: list, kernels) -> dict:
         return batched_invoke(args, mb, level_bits=lb, max_minv=mv)
 
     def singles():
-        return [TorchSolver._unpack(packed_solve(
+        return [kernels.unpack_solve(kernels.packed_solve(
             kernels.from_kernel_args(a, dev), mb, lb, mv,
             fma_rem=False).cpu().numpy(), a, mb) for a in args]
 

@@ -18,7 +18,7 @@ planes' JSON at ``/slo``, ``/introspect`` and ``/usage`` on
 ``KARPENTER_METRICS_PORT``.
 
 The solver is ``make_solver()``: ``TorchSolver()`` on the CUDA card, with
-the engine ladder of ``models/solver.py``; without a card it raises.
+the engine ladder of ``ops/engines.py``; without a card it raises.
 ``--device cpu`` (the counterpart of the JAX package's
 ``JAX_PLATFORMS=cpu``) runs ``TorchSolver(device="cpu")``, whose batches
 take the native engine (a CPU is not an accelerator) or the plain PyTorch

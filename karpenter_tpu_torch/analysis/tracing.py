@@ -13,8 +13,10 @@ tensor, state a loop rebinds to a tensor is one where the next iteration
 reads it, and the taint follows calls into package-local functions as in
 the JAX package's pass. Inside
 anything reachable from an entry, the silent failure mode is a host read:
-the eager pack loop is launch-bound, and a read blocks the host until the
-card drains its queue, so the next launches wait on it.
+a dispatch is feasibility's two compat launches and one pack launch,
+queued without a wait so that its device time lies in the one readback
+(``solve.block``), and a read in between blocks the host until the card
+drains its queue, so the next launches wait on it.
 
 - GL101 host-read: ``.item()`` / ``.cpu()`` / ``.numpy()`` / ``.tolist()``
   on a tensor, ``float()`` / ``int()`` / ``bool()`` / ``np.asarray()`` on

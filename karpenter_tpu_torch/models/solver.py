@@ -7,8 +7,9 @@ for one provisioning round: it compiles the snapshot to tensors
 pre-loaded bins (``tensorize_existing``), runs feasibility + pack on the
 device (``ops.kernels.solve_step``, whose requirement-compat products are
 the CUDA kernel of ``ops.cuda_kernels``), reads the outputs back as ONE
-int32 buffer, and decodes bins into in-flight NodeClaims and existing-node
-placements validated on the host. Pods the device path cannot express,
+int32 buffer (``ops.kernels.packed_solve``, ``unpack_solve``), and
+decodes bins into in-flight NodeClaims and existing-node placements
+validated on the host. Pods the device path cannot express,
 and leftovers, go through ``HostSolver`` — the FFD loop — seeded with the
 device-built claims, the updated existing nodes and the topology, as in
 the JAX package; that route is part of the semantics.
@@ -28,26 +29,21 @@ snapshot (``DisruptionSnapshot.derive_esnap``) instead of re-tensorized.
 the signature groups by priority tier and orders the scan tier-major, as
 the JAX package does; the waves path ignores it.
 
-The engine ladder (``TPUSolver``'s routing by size): a batch of at most
-``HOST_CUTOFF_PODS`` pods runs the host FFD loop without tensorizing; a
-dispatch of at most ``NATIVE_CUTOFF_PODS`` pods, or with fewer than
-``DEVICE_MIN_WORK`` real group×type cells, or on a solver whose device is
-not an accelerator, runs the native C++ engine (``karpenter_tpu_torch/
-native``) on the numpy arguments and never uploads them; the rest goes to
-the device. ``KARPENTER_NATIVE_CUTOFF=0`` turns all routing off,
-``KARPENTER_HOST_CUTOFF`` and ``KARPENTER_DEVICE_MIN_WORK`` move the other
-two gates, and ``KARPENTER_ASSUME_ACCELERATOR`` overrides the device test.
-``last_device_stats`` records the ``engine`` that ran (``"host"``,
-``"native"`` or the device type); each solve records ONE ``solver.route``
-decision, its (rung, reason) also kept on ``_route`` as the JAX package
-keeps it. ``NativeSolver`` always runs the native engine; ``make_solver``
-picks the default solver.
+The engine ladder (``TPUSolver``'s routing by size) is decided in
+``ops/engines.py``: a small batch runs the host FFD loop untensorized, a
+dispatch with a native reason runs the native C++ engine on the numpy
+arguments and never uploads them, the rest the device. ``last_device_stats`` records the ``engine`` that ran
+(``"host"``, ``"native"`` or the device type); each solve records ONE
+``solver.route`` decision, its (rung, reason) also kept on ``_route`` as
+the JAX package keeps it. ``NativeSolver`` always runs the native engine;
+``make_solver`` picks the default solver.
 
 Observability, at the JAX package's sites and with its names: the
 ``solve.host`` span around the FFD loop; per dispatch ``solve.kernel``
-(``device``) holding ``solve.native`` or ``solve.dispatch`` (the eager
-launch of the pack loop) and ``solve.block`` (the one readback, where
-the host waits for the card), then ``solve.decode``; the compile ledger's
+(``device``) holding ``solve.native`` or ``solve.dispatch`` (the launches
+of feasibility's two compat kernels and the one pack kernel) and
+``solve.block`` (the one readback, where the host waits for the card and
+the dispatch's device time lies), then ``solve.decode``; the compile ledger's
 ``solve.kernel`` family under the JAX package's key (padded shapes and
 static parameters), the ``solve.bins`` padding site, the bin-growth
 counter, the solve-quality account and the ``decode.recheck`` decision.
@@ -77,8 +73,9 @@ JAX package: the service drives one shared solver from concurrent
 threads.
 
 The mesh route (``parallel/mesh.py``): on a solver whose device is CUDA
-with more than one card attached, a dispatch whose feasibility work
-``G·T·K·W`` reaches ``SHARD_MIN_WORK`` goes through
+with more than one card attached (``engines.mesh_wanted``), a dispatch
+whose feasibility work reaches ``engines.SHARD_MIN_WORK``
+(``engines.shard_worthy``) goes through
 ``sharded_solve_host`` (engine ``mesh``, route ``("mesh", "ok")``), which
 records its own ``mesh.solve`` capture, so the ``solver.invoke`` capture is
 skipped there and one dispatch yields one capsule. On one card the mesh
@@ -126,8 +123,9 @@ from karpenter_tpu_torch.models.scheduler import (
     SchedulerResults,
     subtract_max,
 )
-from karpenter_tpu_torch.ops import kernels, waves
+from karpenter_tpu_torch.ops import engines, kernels, waves
 from karpenter_tpu_torch.ops.cuda_kernels import DEVICE_FAULTS
+from karpenter_tpu_torch.ops.kernels import packed_solve, unpack_solve
 from karpenter_tpu_torch.ops.relax import lp_bin_floor
 from karpenter_tpu_torch.ops.tensorize import (
     _COMPAT_CACHE_MAX,
@@ -142,34 +140,7 @@ from karpenter_tpu_torch.ops.tensorize import (
     tensorize_existing,
 )
 from karpenter_tpu_torch.utils import resources as resutil
-from karpenter_tpu_torch.utils.envknobs import env_bool, env_int, env_str
-
-# The JAX package's cutoffs (karpenter_tpu/models/solver.py), kept as they
-# are: pods per solve at or below which the native engine runs instead of
-# the device (0 turns ALL routing off); pods per batch at or below which
-# the host FFD loop runs without tensorizing; real group×type cells below
-# which a batch is a short sequential loop the native engine finishes
-# first (0 turns this gate off).
-NATIVE_CUTOFF_PODS = 192
-HOST_CUTOFF_PODS = 8
-DEVICE_MIN_WORK = 8192
-# feasibility work (G*T*K*W mask cells) above which a multi-device mesh
-# earns its overhead; single-card installs never shard
-SHARD_MIN_WORK = 1 << 21
-
-
-def capture_engine(engine: str) -> str:
-    """A dispatch's engine as a replay capture names it, in the JAX
-    package's words: ``native`` and ``remote`` as they are, the device
-    types (``cuda``, ``cpu``) as ``device``."""
-    return engine if engine in ("native", "remote") else "device"
-
-
-def _native_cutoff() -> int:
-    """The routing master switch: 0 turns ALL engine routing off (the
-    parity tests pin this to keep the device path under test)."""
-    return env_int("KARPENTER_NATIVE_CUTOFF", NATIVE_CUTOFF_PODS)
-
+from karpenter_tpu_torch.utils.envknobs import env_bool, env_str
 
 def _exact_skip_enabled() -> bool:
     """``KARPENTER_DECODE_EXACT_SKIP``: the decoder's multi-group
@@ -215,17 +186,6 @@ def _profiled(device: torch.device):
             "holds no CUDA kernel event; the profiler cannot trace the card")
 
 
-def _accelerated(device: torch.device) -> bool:
-    """Whether ``device`` is an accelerator (CUDA): on the CPU the plain
-    PyTorch path only emulates the device kernel and the native engine
-    wins at every size. ``KARPENTER_ASSUME_ACCELERATOR`` (1/0) overrides
-    the test."""
-    v = env_str("KARPENTER_ASSUME_ACCELERATOR")
-    if v is not None:
-        return v.strip().lower() in ("1", "true", "yes", "on")
-    return device.type == "cuda"
-
-
 class Solver:
     def solve(self, pods, templates, instance_types, **kw) -> SchedulerResults:
         raise NotImplementedError
@@ -235,23 +195,6 @@ def _pack_route(args: dict) -> str:
     """How ``kernels.pack`` runs on these tensors: ``kernel`` (one launch
     of ``csrc/pack.cu``, CUDA) or ``plain`` (``pack_reference``, CPU)."""
     return "kernel" if args["g_demand"].is_cuda else "plain"
-
-
-def packed_solve(args: dict, max_bins: int, level_bits: int, max_minv: int,
-                 fma_rem: bool = True) -> torch.Tensor:
-    """``solve_step`` on a snapshot's tensors with every output flattened
-    into ONE int32 tensor on their device (assign, assign_e, used, tmpl,
-    F — the layout ``TorchSolver._unpack`` splits), so the caller reads
-    one buffer back. ``fma_rem`` is ``solve_step``'s."""
-    out = kernels.solve_step(args, max_bins=max_bins, level_bits=level_bits,
-                             max_minv=max_minv, fma_rem=fma_rem)
-    return torch.cat([
-        out["assign"].ravel(),
-        out["assign_e"].ravel(),
-        out["used"].to(torch.int32),
-        out["tmpl"],
-        out["F"].to(torch.int32).ravel(),
-    ])
 
 
 def batched_invoke(args_list, max_bins: int, level_bits: int = 20,
@@ -292,8 +235,7 @@ def batched_invoke(args_list, max_bins: int, level_bits: int = 20,
         (Np, max_bins, level_bits, max_minv,
          tuple(sorted((k, v.shape[1:]) for k, v in stacked.items()))),
         time.perf_counter() - t0)
-    return [TorchSolver._unpack(flat[i], args_list[i], max_bins)
-            for i in range(n)]
+    return [unpack_solve(flat[i], args_list[i], max_bins) for i in range(n)]
 
 
 class HostSolver(Solver):
@@ -354,7 +296,7 @@ class TorchSolver(Solver):
         one card is attached (``parallel.make_mesh``); None otherwise."""
         if not self._mesh_checked:
             self._mesh_checked = True
-            if self.device.type == "cuda" and torch.cuda.device_count() > 1:
+            if engines.mesh_wanted(self.device):
                 from karpenter_tpu_torch.parallel import make_mesh
 
                 self._mesh = make_mesh()
@@ -387,10 +329,7 @@ class TorchSolver(Solver):
         has_topology = bool(getattr(
             topology, "has_groups",
             topology is not None and not isinstance(topology, NullTopology)))
-        host_cutoff = 0
-        if _native_cutoff() > 0:
-            host_cutoff = env_int("KARPENTER_HOST_CUTOFF", HOST_CUTOFF_PODS)
-        if not templates or 0 < len(pods) <= host_cutoff:
+        if not templates or 0 < len(pods) <= engines.host_cutoff():
             reason = "small-batch" if templates else "no-templates"
             self.last_device_stats = _host_stats(
                 pods, {reason: len(pods)} if pods else {}, reason)
@@ -687,7 +626,7 @@ class TorchSolver(Solver):
             if self._route is None or self._route[0] != "mesh":
                 capsule.record_capture(
                     "solver.invoke", args_np, host,
-                    engine=capture_engine(self._engine),
+                    engine=engines.capture_engine(self._engine),
                     rung=self._route[0] if self._route else None,
                     reason=self._route[1] if self._route else None,
                     max_bins=Bp, level_bits=p["level_bits"],
@@ -700,8 +639,8 @@ class TorchSolver(Solver):
             if grow:
                 # the doubled axis goes out NOW, so the card runs it while
                 # the host decodes; when the decode leaves no pods over it
-                # is thrown away, and the port has paid its host launch of
-                # the pack loop on this thread as well as the card's time
+                # is thrown away, and the port has paid its three launches
+                # on this thread as well as the card's time
                 pull = self._invoke_spec(
                     args_np, base_key + (Bp2,) + statics, Bp2, upload)
             assign_e = host["assign_e"][:G, :E] if esnap is not None else None
@@ -734,26 +673,25 @@ class TorchSolver(Solver):
 
     def _dispatch(self, args_np, key, max_bins, upload=None):
         """One dispatch of a snapshot's numpy kernel arguments, routed by
-        the engine gates (``_native_reason``): the native engine, the mesh
-        (``_maybe_mesh``, above ``SHARD_MIN_WORK``, on the numpy arguments),
-        or the device — uploaded with ``from_kernel_args`` (once per ``upload``
-        dict, which a solve's doubled re-runs share) and run by
+        the engine gates (``ops/engines.py``): the native engine (a
+        failure logged), else the mesh (``_maybe_mesh``,
+        ``engines.shard_worthy``), else the device — uploaded with
+        ``from_kernel_args`` (once per ``upload`` dict, which a solve's
+        doubled re-runs share) and run by
         ``_invoke``. ``key`` is the compile ledger's; its last two
         entries are ``level_bits`` and ``max_minv``. Returns the host
         output dict and leaves this thread's ``_engine``/``_route`` set.
         Under ``KARPENTER_PROFILE_DIR`` the mesh or device part is
         profiled (``_profiled``). The solver service's server calls this
         on the arguments a client shipped."""
-        reason = self._native_reason(args_np)
+        reason = self.native_reason(args_np)
         if reason is not None:
             host = self._invoke_native(args_np, max_bins, reason)
             if host is not None:
                 return host
         mesh = self._maybe_mesh()
-        G, K, W = args_np["g_mask"].shape
-        T = args_np["t_mask"].shape[0]
         with _profiled(self.device):
-            if mesh is not None and G * T * K * W >= SHARD_MIN_WORK:
+            if mesh is not None and engines.shard_worthy(args_np):
                 from karpenter_tpu_torch.parallel import sharded_solve_host
 
                 # the shard-stage decomposition (shard.pad/tensorize/
@@ -773,30 +711,10 @@ class TorchSolver(Solver):
             return self._invoke(upload["args"], max_bins, key[-2], key[-1],
                                 key=key)
 
-    def _native_reason(self, args_np) -> str | None:
-        """The gate of one dispatch, decided on the numpy arguments: the
-        reason it goes to the native engine (``small-batch``,
-        ``work-floor``, ``cpu-backend``), or None for the device. Counts
-        REAL groups and types (padded groups count 0 pods and padded types
-        have no allocatable), so routing flips at the calibrated work,
-        not at shape-bucket boundaries."""
-        cutoff = _native_cutoff()
-        g_count = np.asarray(args_np["g_count"])
-        total = int(g_count.sum())
-        if cutoff <= 0 or total <= 0:
-            return None
-        min_work = env_int("KARPENTER_DEVICE_MIN_WORK", DEVICE_MIN_WORK)
-        work = int((g_count > 0).sum()) * int(
-            (np.asarray(args_np["t_alloc"]).max(axis=1) > 0).sum())
-        if total <= cutoff:
-            reason = "small-batch"
-        elif work < min_work:
-            reason = "work-floor"
-        elif not _accelerated(self.device):
-            reason = "cpu-backend"
-        else:
-            return None
-        return reason if native.available() else None
+    def native_reason(self, args_np) -> str | None:
+        """``engines.native_reason`` on this solver's device; the solver
+        service's coalesced window asks it too."""
+        return engines.native_reason(args_np, self.device)
 
     def _invoke_native(self, args_np, max_bins, reason):
         """One dispatch on the native engine; None when the engine fails,
@@ -814,11 +732,12 @@ class TorchSolver(Solver):
         return out
 
     def _invoke(self, args, max_bins, level_bits, max_minv, key):
-        """One device dispatch: solve_step with every output flattened into
-        ONE int32 buffer, read back to the host once. ``solve.dispatch``
-        holds the eager launch of the pack loop (PyTorch queues the
-        kernels and returns), ``solve.block`` the readback, where the
-        host waits for the card; ``key`` is the compile ledger's."""
+        """One device dispatch: ``packed_solve``, read back to the host once
+        and split by ``unpack_solve``. ``solve.dispatch`` holds the
+        launches (feasibility's two compat kernels and the one pack kernel
+        on the card, which queue and return), ``solve.block`` the readback,
+        where the host waits for the card and the dispatch's device time
+        lies; ``key`` is the compile ledger's."""
         _WARM_FAMILIES.add((max_bins, level_bits, max_minv))
         t0 = time.perf_counter()
         with obs.span("solve.dispatch", kind="device",
@@ -831,7 +750,7 @@ class TorchSolver(Solver):
                                  time.perf_counter() - t0)
         with obs.span("solve.block", kind="device"):
             host = flat.cpu().numpy()  # one device->host read
-        return self._unpack(host, args, max_bins)
+        return unpack_solve(host, args, max_bins)
 
     def _invoke_spec(self, args_np, key, max_bins, upload):
         """The doubled bin axis, dispatched before the decode that decides
@@ -840,9 +759,8 @@ class TorchSolver(Solver):
         dispatch took the device rung, there is no mesh and no profile is
         being taken, ``packed_solve`` is queued now on the tensors already
         uploaded, inside ``solve.dispatch_spec``, and the pull reads the
-        flat buffer back once. The launch runs on the calling thread: on
-        the card the host's launch of the pack loop moves ahead of the
-        decode and is not hidden; the card's run of it overlaps the
+        flat buffer back once. The three launches run on the calling
+        thread ahead of the decode; the card's run of them overlaps the
         decode. Otherwise, and when the launch raises a
         device fault, the pull is the ordinary ``_dispatch`` (the engine
         gates again, on the same device; a repeated fault raises there)."""
@@ -868,25 +786,7 @@ class TorchSolver(Solver):
                 "speculative doubled dispatch failed; deferring to the "
                 "ordinary dispatch", exc_info=True)
             return deferred
-        return lambda: self._unpack(flat.cpu().numpy(), args, max_bins)
-
-    @staticmethod
-    def _unpack(flat, args, max_bins):
-        """Split the single flattened int32 buffer back into the
-        assign/assign_e/used/tmpl/F host dict."""
-        G = args["g_mask"].shape[0]
-        T = args["t_mask"].shape[0]
-        B = max_bins
-        E = args["e_avail"].shape[0] if "e_avail" in args else 1
-        sizes = [G * B, G * E, B, B, G * T]
-        offs = np.cumsum([0] + sizes)
-        return {
-            "assign": flat[offs[0] : offs[1]].reshape(G, B),
-            "assign_e": flat[offs[1] : offs[2]].reshape(G, E),
-            "used": flat[offs[2] : offs[3]].astype(bool),
-            "tmpl": flat[offs[3] : offs[4]],
-            "F": flat[offs[4] : offs[5]].reshape(G, T).astype(bool),
-        }
+        return lambda: unpack_solve(flat.cpu().numpy(), args, max_bins)
 
     def _compat_entry(self, snap, feas, m, gset, template):
         """Distinct-(template, group-set) candidate types + precomputed fit
@@ -1226,7 +1126,7 @@ class NativeSolver(TorchSolver):
     probes above the work floor — and follows ``TorchSolver``'s rule:
     None means CUDA and raises without it; pass ``device="cpu"``."""
 
-    def _native_reason(self, args_np) -> str:
+    def native_reason(self, args_np) -> str:
         return "ok"
 
     def _invoke_native(self, args_np, max_bins, reason):

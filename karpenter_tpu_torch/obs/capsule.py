@@ -470,15 +470,11 @@ def _rung_name(rung: str | None) -> str | None:
 
 def _captured_rung(cap: Capsule) -> str:
     """The replayable rung the capture actually ran."""
-    engine = cap.engine
+    from karpenter_tpu_torch.ops import engines
+
     if cap.seam == "relax.dispatch":
         return "relax"
-    if cap.seam in _ROW_SEAMS:
-        return "native" if engine == "native" else "device"
-    if cap.seam == "mesh.solve":
-        return {"partitioned": "partitioned",
-                "replicated": "replicated"}.get(engine, "device")
-    return {"native": "native"}.get(engine, "device")
+    return engines.replay_rung(cap.engine)
 
 
 def _replay_device(device):
@@ -492,8 +488,7 @@ def _run_device(cap: Capsule, device) -> dict:
     ``from_kernel_args`` onto the replay device, ``solve_step`` with the
     captured static parameters (and the captured program's multiply-add
     rule: a service solve folded into a batched dispatch ran the batched
-    program's), one int32 buffer back, ``TorchSolver._unpack``."""
-    from karpenter_tpu_torch.models.solver import TorchSolver, packed_solve
+    program's), one int32 buffer back, ``unpack_solve``."""
     from karpenter_tpu_torch.ops import kernels
 
     args = cap.args()
@@ -505,10 +500,10 @@ def _run_device(cap: Capsule, device) -> dict:
                     if "m_minv" in args else 0)
     else:
         max_minv = int(cap.static("max_minv", 0))
-    flat = packed_solve(
+    flat = kernels.packed_solve(
         kernels.from_kernel_args(args, _replay_device(device)), max_bins,
         level_bits, max_minv, fma_rem=not cap.static("batched", False))
-    return TorchSolver._unpack(flat.cpu().numpy(), args, max_bins)
+    return kernels.unpack_solve(flat.cpu().numpy(), args, max_bins)
 
 
 def _run_native(cap: Capsule, device=None) -> dict:

@@ -36,9 +36,8 @@ device is its provisioner's solver's (``TorchSolver.device``).
 
 Knobs (``utils/envknobs.py``): ``KARPENTER_REPLACE_MAX_CLAIMS`` (fresh
 claims a joint row may open, default 1), ``KARPENTER_GLOBAL_REPAIR_MAX``
-(host repair budget, 64), ``KARPENTER_TIER_WEIGHT`` (priority discount of
-the retirement credit, 0) and ``KARPENTER_GLOBAL_FORMULATE_LOOP`` (the
-per-candidate loops as the oracle of the vectorised formulation).
+(host repair budget, 64) and ``KARPENTER_TIER_WEIGHT`` (priority discount
+of the retirement credit, 0).
 
 Across rounds, ``SnapshotCache`` keeps one snapshot per cluster-state
 generation for every probe and confirming simulation of a round, and
@@ -48,9 +47,9 @@ journal (``DisruptionSnapshot.advance``) instead of rebuilding it;
 probes of the same generation, and ``DISPATCHES_BY_GEN`` counts the probe
 dispatches of each generation (the contract is at most one).
 
-The native rung: under the solver's gates (``models/solver.py``: the
-``KARPENTER_NATIVE_CUTOFF`` master switch and the ``DEVICE_MIN_WORK``
-floor on the snapshot's G×T), rows go to the native engine's batched
+The native rung: under the probe's gate (``ops/engines.py``
+``probe_native``: the solver's master switch and work floor, on the
+snapshot's G×T), rows go to the native engine's batched
 probe entry (``native.solve_probe_batch``) in chunks of
 ``NATIVE_PROBE_CHUNK_ROWS``, on the numpy snapshot, as in the JAX
 package; a native failure is logged and the rows take the device.
@@ -83,7 +82,7 @@ import torch
 
 from karpenter_tpu_torch import native, obs
 from karpenter_tpu_torch.obs import capsule, devplane
-from karpenter_tpu_torch.ops import kernels
+from karpenter_tpu_torch.ops import engines, kernels
 from karpenter_tpu_torch.ops.tensorize import (
     ExistingSnapshot,
     device_basic_eligible,
@@ -94,7 +93,7 @@ from karpenter_tpu_torch.ops.tensorize import (
     tensorize,
     tensorize_existing,
 )
-from karpenter_tpu_torch.utils.envknobs import env_bool, env_float, env_int
+from karpenter_tpu_torch.utils.envknobs import env_float, env_int
 
 # counterfactual rows per probe_step call (the JAX package's chunk)
 PROBE_CHUNK_ROWS = 128
@@ -108,14 +107,6 @@ NATIVE_PROBE_CHUNK_ROWS = 1024
 def _pow2(n: int, lo: int = 8) -> int:
     """Next power of two >= n (>= lo) — the probe's pad ladder."""
     return max(lo, 1 << math.ceil(math.log2(max(n, 1))))
-
-
-def _formulate_loop() -> bool:
-    """``KARPENTER_GLOBAL_FORMULATE_LOOP=1`` forces the per-candidate
-    Python loops (``_contribs_loop``, ``_cheapest_cum_loop``) where the
-    vectorised construction would otherwise run: the bit-exactness oracle
-    of the gather."""
-    return env_bool("KARPENTER_GLOBAL_FORMULATE_LOOP", False)
 
 
 # per-generation probe-dispatch accounting: the short-circuit contract is
@@ -218,10 +209,7 @@ class DisruptionSnapshot:
         """[N,G] per-candidate reschedulable-pod counts over the snapshot's
         group axis; None when a pod is missing from the snapshot. Gathers
         rows of the cached [E,G] contribution matrix; a candidate without
-        a usable cached row falls back to ``_contribs_loop``, which
-        ``KARPENTER_GLOBAL_FORMULATE_LOOP=1`` forces everywhere."""
-        if _formulate_loop():
-            return self._contribs_loop(candidates)
+        a usable cached row falls back to ``_contribs_loop``."""
         if cols is None:
             cols = self.columns_for(candidates)
         if cols is None:
@@ -575,7 +563,7 @@ class DisruptionSnapshot:
         caps the fresh claims a row may open (1 is the reference's m→1
         rule). ``e_zero_cols[i]`` holds the existing-node columns row i
         removes. A snapshot under the solver's work floor runs on the
-        native engine (``_native_routable``), the rest on the bundle's
+        native engine (``engines.probe_native``), the rest on the bundle's
         device. ``seam`` names the replay-capture seam the dispatch
         records under: ``probe.dispatch`` for the per-candidate probes,
         ``global.dispatch`` for the joint ladder, ``interruption.dispatch``
@@ -586,7 +574,7 @@ class DisruptionSnapshot:
         note_probe_dispatch(self.generation)
         rows = g_count_k.shape[0]
         shared_np, (Gp, Ep) = self._shared_host()
-        if self._native_routable():
+        if engines.probe_native(self.snap.G, self.snap.T):
             try:
                 with obs.span("probe.dispatch", rows=rows, engine="native"):
                     placed_g, used = dispatch_counterfactual_rows_native(
@@ -624,23 +612,6 @@ class DisruptionSnapshot:
             {"placed_g": placed_g, "used": used},
             engine=engine, max_minv=self.max_minv, Gp=Gp, Ep=Ep,
             max_bins=max_bins)
-
-    def _native_routable(self) -> bool:
-        """The solver's engine gates applied to the probe: the same
-        ``KARPENTER_NATIVE_CUTOFF`` master switch (0 turns routing off)
-        and the same feasibility-work floor — a probe row's parallelism is
-        G×T, and below the floor the device cannot amortize its launches."""
-        from karpenter_tpu_torch.models.solver import (
-            DEVICE_MIN_WORK,
-            _native_cutoff,
-        )
-
-        if _native_cutoff() <= 0:
-            return False
-        min_work = env_int("KARPENTER_DEVICE_MIN_WORK", DEVICE_MIN_WORK)
-        if self.snap.G * self.snap.T >= min_work:
-            return False
-        return native.available()
 
 
 def row_capture_inputs(shared_np, g_count_k, e_avail, e_zero_cols,
@@ -1249,10 +1220,7 @@ def _prefix_price_ok(bundle, candidates):
                 -1)
              for c in candidates),
             dtype=np.int64, count=N)
-        if _formulate_loop():
-            cheapest = _cheapest_cum_loop(prices, j_arr, len(p_cat))
-        else:
-            cheapest = _cheapest_cum_vec(prices, j_arr, len(p_cat))
+        cheapest = _cheapest_cum_vec(prices, j_arr, len(p_cat))
         is_option = p_cat[None, :] < prefix_price[:, None]
         overlap = is_option & np.isfinite(cheapest)
         max_price = np.where(overlap, cheapest, np.inf).min(axis=1)
@@ -1278,24 +1246,11 @@ def _type_price_vectors(snap):
     return p_cat, {nm: j for j, nm in enumerate(p_by_name)}
 
 
-def _cheapest_cum_loop(prices, j_arr, M):
-    """Oracle: the per-candidate running-min loop over the prefix
-    (cheapest already-seen candidate price per type)."""
-    N = len(prices)
-    cheapest = np.full((N, M), np.inf)
-    cur = np.full(M, np.inf)
-    for i in range(N):
-        j = int(j_arr[i])
-        if j >= 0 and prices[i] > 0:
-            cur[j] = min(cur[j], prices[i])
-        cheapest[i] = cur
-    return cheapest
-
-
 def _cheapest_cum_vec(prices, j_arr, M):
-    """Vectorised ``_cheapest_cum_loop``: the same float64 min over the
-    same values in the same prefix order, one ``np.minimum.accumulate``
-    per present type."""
+    """``[N, M]``: for each prefix of the candidates, the cheapest
+    positive price seen so far per type (``j_arr``, −1 for none; inf where
+    none), one ``np.minimum.accumulate`` per present type: bit-equal to
+    the JAX package's loop, ``_cheapest_cum_loop``."""
     N = len(prices)
     cheapest = np.full((N, M), np.inf)
     for j in np.unique(j_arr):

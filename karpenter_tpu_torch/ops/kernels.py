@@ -711,6 +711,36 @@ def solve_step(args: dict, max_bins: int, with_existing: bool | None = None,
     return out
 
 
+def packed_solve(args: dict, max_bins: int, level_bits: int, max_minv: int,
+                 fma_rem: bool = True) -> torch.Tensor:
+    """``solve_step`` with every output the host decodes flattened into
+    ONE int32 tensor (assign, assign_e, used, tmpl, F), so a dispatch
+    reads one buffer back: the layout of the solver, the service's batched
+    dispatch and the replay plane, which ``unpack_solve`` splits."""
+    out = solve_step(args, max_bins=max_bins, level_bits=level_bits,
+                     max_minv=max_minv, fma_rem=fma_rem)
+    return torch.cat([out["assign"].ravel(), out["assign_e"].ravel(),
+                      out["used"].to(torch.int32), out["tmpl"],
+                      out["F"].to(torch.int32).ravel()])
+
+
+def unpack_solve(flat: np.ndarray, args: dict, max_bins: int) -> dict:
+    """Split ``packed_solve``'s buffer, read back to the host, into the
+    assign/assign_e/used/tmpl/F host dict; ``args`` (numpy or tensors)
+    gives the shapes."""
+    G, B = args["g_mask"].shape[0], max_bins
+    T = args["t_mask"].shape[0]
+    E = args["e_avail"].shape[0] if "e_avail" in args else 1
+    offs = np.cumsum([0, G * B, G * E, B, B, G * T])
+    return {
+        "assign": flat[offs[0] : offs[1]].reshape(G, B),
+        "assign_e": flat[offs[1] : offs[2]].reshape(G, E),
+        "used": flat[offs[2] : offs[3]].astype(bool),
+        "tmpl": flat[offs[3] : offs[4]],
+        "F": flat[offs[4] : offs[5]].reshape(G, T).astype(bool),
+    }
+
+
 def probe_step(varying: dict, shared: dict, max_bins: int, max_minv: int,
                level_bits: int = _LEVEL_SEARCH_ITERS):
     """The consolidation probe over a chunk of counterfactual rows: the

@@ -43,7 +43,8 @@ Knobs (``utils/envknobs.py``), read as the JAX package reads them:
 ``KARPENTER_RELAX``           ``1`` forces the floor on, ``0`` kills it.
                               Unset = on when the solver's device is CUDA
                               (the JAX package: when its backend is an
-                              accelerator), off on the CPU.
+                              accelerator), off on the CPU. Read by
+                              ``ops/engines.py relax_enabled``.
 ``KARPENTER_RELAX_MAX_ITERS`` iteration cap (default 384).
 ``KARPENTER_RELAX_TOL``       relative convergence tolerance (5e-3).
 ``KARPENTER_RELAX_RHO``       primal/dual step balance (default 1.0).
@@ -78,8 +79,9 @@ import torch
 
 from karpenter_tpu_torch import obs
 from karpenter_tpu_torch.obs import devplane
+from karpenter_tpu_torch.ops.engines import relax_enabled
 from karpenter_tpu_torch.ops.kernels import resolve_device
-from karpenter_tpu_torch.utils.envknobs import env_float, env_int, env_str
+from karpenter_tpu_torch.utils.envknobs import env_float, env_int
 
 __all__ = ["relax_enabled", "lp_bin_floor", "floor_inputs", "floor_lb",
            "joint_relax_plan", "joint_lp", "round_window",
@@ -120,19 +122,6 @@ RELAX_STATS = {
     "floor_iters": 0,
     "last_lb": 0.0,
 }
-
-
-def relax_enabled(device=None) -> bool:
-    """Tri-state enable: KARPENTER_RELAX=1 forces the floor on, =0 kills
-    it, unset/empty turns it on exactly when ``device`` is an accelerator
-    (a CUDA device, or as ``KARPENTER_ASSUME_ACCELERATOR`` says — the
-    solver's own test, ``models/solver.py _accelerated``)."""
-    v = (env_str("KARPENTER_RELAX") or "").strip().lower()
-    if v:
-        return v not in ("0", "false", "off", "no")
-    from karpenter_tpu_torch.models.solver import _accelerated
-
-    return device is not None and _accelerated(torch.device(device))
 
 
 def _relax_max_iters() -> int:

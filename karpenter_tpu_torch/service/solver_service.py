@@ -235,31 +235,21 @@ class _SolverHandler:
     # -- dispatch (shared by Solve and SessionSolve) ---------------------
 
     def _dispatch_one(self, item: dict):
-        from karpenter_tpu_torch.models.solver import capture_engine
-
         out = self._solver._dispatch(
             item["args"], item["key"], item["max_bins"])
         # the engine THIS dispatch ran, read on the dispatching thread
         # (the solver's engine slot is thread-local): the replay capture
         # must never stamp another tenant's rung onto this item
-        item["engine"] = capture_engine(self._solver._engine)
+        item["engine"] = engines.capture_engine(self._solver._engine)
         return out
 
     def _dispatch_many(self, items: list):
-        from karpenter_tpu_torch.models.solver import (
-            _accelerated,
-            batched_invoke,
-        )
-
-        # device-aware, mirroring the solver's routing stance: on the card
-        # the fold rides ONE batched dispatch (the shape family the window
-        # exists to share); on the CPU the batched plain path loses to the
-        # per-request engine at every size (KARPENTER_ASSUME_ACCELERATOR=0/1 overrides, as
-        # everywhere) — the window still bounds and batches the queue, and
-        # the members dispatch concurrently (the native engine's ctypes
-        # call releases the GIL, so a k-fold costs ~1 solve on k cores,
-        # not k sequential solves for the last member)
-        if not _accelerated(self._solver.device):
+        # on the card the fold rides ONE batched dispatch (the shape family
+        # the window exists to share); off an accelerator (engines'
+        # test) the batched plain path loses to the per-request engine at
+        # every size, so the members dispatch concurrently (the native
+        # engine's ctypes call releases the GIL: a k-fold costs ~1 solve)
+        if not engines.accelerated(self._solver.device):
             if len(items) == 1:
                 return [self._dispatch_one(items[0])]
             return list(self._cpu_pool.map(self._dispatch_one, items))
@@ -267,7 +257,7 @@ class _SolverHandler:
         # native engine runs there, on the fan-out pool, so folding never
         # changes a member's engine; only the device-routed rest is folded
         folded = [i for i, it in enumerate(items)
-                  if self._solver._native_reason(it["args"]) is None]
+                  if self._solver.native_reason(it["args"]) is None]
         if len(folded) < 2:
             return list(self._cpu_pool.map(self._dispatch_one, items))
         pending = {i: self._cpu_pool.submit(self._dispatch_one, items[i])
@@ -549,7 +539,8 @@ def serve(port: int = 0, use_native: bool = False, max_workers: int = 4,
     return server, bound
 
 
-from karpenter_tpu_torch.models.solver import TorchSolver  # noqa: E402
+from karpenter_tpu_torch.models.solver import TorchSolver, batched_invoke  # noqa: E402
+from karpenter_tpu_torch.ops import engines  # noqa: E402
 
 # distinct shape families one client keeps live sessions for: the base
 # family plus the doubled bin-axis re-run covers steady state; growth

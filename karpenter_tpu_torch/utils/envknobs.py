@@ -4,11 +4,11 @@ reduced to what the port reads: the float knobs of
 ``KARPENTER_WAVES_SEQUENTIAL`` in ``ops/waves.py``, the delta-journal cap
 of ``state/cluster.py``, and the consolidation probe's knobs in
 ``ops/consolidate.py``: ``KARPENTER_REPLACE_MAX_CLAIMS``,
-``KARPENTER_GLOBAL_REPAIR_MAX``, ``KARPENTER_TIER_WEIGHT`` and
-``KARPENTER_GLOBAL_FORMULATE_LOOP``; the engine ladder's gates in
-``models/solver.py``: ``KARPENTER_NATIVE_CUTOFF``,
-``KARPENTER_HOST_CUTOFF``, ``KARPENTER_DEVICE_MIN_WORK`` and
-``KARPENTER_ASSUME_ACCELERATOR``; ``KARPENTER_NATIVE_CACHE`` in
+``KARPENTER_GLOBAL_REPAIR_MAX`` and ``KARPENTER_TIER_WEIGHT``; the engine
+ladder's gates, each read once in ``ops/engines.py``:
+``KARPENTER_NATIVE_CUTOFF``, ``KARPENTER_HOST_CUTOFF``,
+``KARPENTER_DEVICE_MIN_WORK``, ``KARPENTER_ASSUME_ACCELERATOR`` and
+``KARPENTER_RELAX``; ``KARPENTER_NATIVE_CACHE`` in
 ``native/``; the observability planes' knobs in ``obs/``:
 ``KARPENTER_TRACE``, ``KARPENTER_TRACE_DIR``, ``KARPENTER_TRACE_DUMP``,
 ``KARPENTER_TRACE_RING``, ``KARPENTER_COMPILE_STEADY_AFTER``,

@@ -17,10 +17,15 @@
   (``topology-plan``), and config4 under
   ``KARPENTER_REPLACE_MAX_CLAIMS=2``; each with ``KARPENTER_RELAX`` 0 and
   1. Tolerance: exact, compared by name.
+- **The price prefix.** ``_cheapest_cum_vec``, the running cheapest price
+  per type of the joint plan's price gate, against the JAX package's
+  per-candidate loop ``_cheapest_cum_loop`` on seeded and edge cases:
+  bit-equal, inf positions included.
 """
 
 import importlib
 
+import numpy as np
 import pytest
 
 from karpenter_tpu.models.solver import TPUSolver
@@ -249,3 +254,37 @@ def test_fleet_matches_jax_environment(n_nodes, n_groups):
     # the layout's shape: one pod per node, or full and empty nodes
     counts = sorted({sum(c.values()) for c in per_node(store)[0]})
     assert counts == ([1] if n_groups is None else [0, 3])
+
+
+def _price_case(seed, n, m, absent=False, zero=False, repeat=False):
+    rng = np.random.default_rng(seed)
+    prices = rng.choice([0.0, 0.5, 1.0, 2.5, 4.0], size=n)
+    j_arr = rng.integers(-1, m, size=n)
+    if absent:
+        j_arr[:] = -1
+    if zero:
+        prices[:] = 0.0
+    if repeat:
+        j_arr[:] = m - 1
+        prices = rng.choice([0.5, 1.0, 2.5], size=n)
+    return prices.astype(np.float64), j_arr.astype(np.int64), m
+
+
+PRICE_CASES = {
+    "types_absent": _price_case(1, 12, 3, absent=True),
+    "zero_prices": _price_case(2, 12, 3, zero=True),
+    "repeated_type": _price_case(3, 16, 4, repeat=True),
+    "empty": _price_case(4, 0, 3),
+    "one_candidate": _price_case(5, 1, 2),
+    **{f"seed_{s}": _price_case(s, 10 + 7 * s, 1 + s % 6)
+       for s in range(6)},
+}
+
+
+@pytest.mark.parametrize("case", list(PRICE_CASES))
+def test_cheapest_cum_matches_jax_loop(case):
+    prices, j_arr, m = PRICE_CASES[case]
+    want = jcons._cheapest_cum_loop(prices, j_arr, m)
+    got = tcons._cheapest_cum_vec(prices, j_arr, m)
+    assert got.shape == want.shape == (len(prices), m)
+    assert np.array_equal(got, want)  # inf positions included

@@ -628,6 +628,7 @@ class TestSolverRoute:
         from karpenter_tpu_torch import parallel as pparallel
         from karpenter_tpu_torch.models import solver as psolver
         from karpenter_tpu_torch.obs import capsule
+        from karpenter_tpu_torch.ops import engines
 
         calls = {JAX: 0, PORT: 0}
 
@@ -642,7 +643,7 @@ class TestSolverRoute:
         monkeypatch.setattr(pparallel, "sharded_solve",
                             spy(PORT, pparallel.sharded_solve))
         monkeypatch.setattr(jsolver, "SHARD_MIN_WORK", 1)
-        monkeypatch.setattr(psolver, "SHARD_MIN_WORK", 1)
+        monkeypatch.setattr(engines, "SHARD_MIN_WORK", 1)
         claims = {}
         for pkg in (JAX, PORT):
             ob, pool, catalog, CT, _ = _kit(pkg)

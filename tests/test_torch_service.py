@@ -793,8 +793,8 @@ class TestCoalescer:
         big, key, max_bins = captured[0]
         small = dict(big, g_count=np.minimum(np.asarray(big["g_count"]), 1))
         routed = TorchSolver(device="cpu")
-        assert routed._native_reason(big) is None
-        assert routed._native_reason(small) == "small-batch"
+        assert routed.native_reason(big) is None
+        assert routed.native_reason(small) == "small-batch"
         rows = [big] * n_device + [small]
         items = [{"args": a, "key": key, "max_bins": max_bins} for a in rows]
         handler = svc._SolverHandler(device="cpu", registry=Registry())
