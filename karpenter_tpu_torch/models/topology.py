@@ -22,10 +22,31 @@ A ``Topology`` is built inside the port's ``topology.build`` span, and
 each count of a group's domains from the cluster view
 (``_count_domains``, ``_update_inverse_affinities``) inside a
 ``topology.count`` span whose ``pods`` attribute is the running pods the
-count scanned; the JAX package opens neither.
+count's namespaces and selector match; the JAX package opens neither.
+
+``_count_domains`` counts from one index of the running pods per
+``Topology``, built by the first count of a namespace set with one
+``pods_matching(namespaces, None)`` walk and read by every later count of
+that set: the set's pods grouped by their labels, each with its position
+in the walk. A count tests its selector once per labels signature; the
+first count a signature matches groups its counted pods (neither
+``ignored_for_topology`` nor excluded) into node rows, in first-seen
+order, which every later count reuses. A count takes the matching
+signatures' rows in the order of their first pod and records each row's
+pods at once; a node's label requirements are built once per
+``Topology``. The domain maps, their order and ``empty_domains`` are the
+per-pod scan's. The cluster does not change while one ``Topology`` lives
+(one ``schedule()``, or one disruption snapshot, whose every count runs
+in its constructor). A count span's ``walked`` attribute is the running
+pods it walked (the namespace set's pods on the span that builds the
+index, 0 on the rest) and ``tests`` its selector tests; ``STATS`` sums
+the counts, index walks, pods walked and selector tests over the
+process.
 """
 
 from __future__ import annotations
+
+from operator import itemgetter
 
 from karpenter_tpu_torch import obs
 from karpenter_tpu_torch.api import labels as wk
@@ -37,6 +58,18 @@ from karpenter_tpu_torch.scheduling import (
     label_requirements,
     node_selector_requirements,
 )
+
+# process-wide count accounting — a plain dict, as the offering table's
+STATS = {
+    "counts": 0,
+    "index_walks": 0,
+    "pods_walked": 0,
+    "selector_tests": 0,
+}
+
+# the labels of a pod the view gives no node labels for: one object, so
+# the rows and the requirement memo key such pods alike
+_NO_LABELS: dict = {}
 
 TYPE_SPREAD = "topology spread"
 TYPE_AFFINITY = "pod affinity"
@@ -241,6 +274,23 @@ class TopologyGroup:
         return Requirement(self.key, IN, options)
 
 
+class _Signature:
+    """The running pods of one labels signature in a namespace set, as
+    the view gave them: each one's position in the walk (``walk``), the
+    pod (``pods``) and its node's labels (``nodes``), in parallel lists
+    that keep no object per pod alive; and their node rows once built
+    (``Topology._rows``)."""
+
+    __slots__ = ("labels", "walk", "pods", "nodes", "rows")
+
+    def __init__(self, labels: dict):
+        self.labels = labels
+        self.walk: list = []
+        self.pods: list = []
+        self.nodes: list = []
+        self.rows: list | None = None
+
+
 class Topology:
     """Hash-deduped topology group registry + the AddRequirements/Record
     protocol the scheduler drives (topology.go:43)."""
@@ -261,6 +311,12 @@ class Topology:
             # uid -> [tg...] the pod currently owns: update() un-registers via
             # this index instead of sweeping every registry group per pod
             self._owner_tgs: dict = {}
+            # namespaces -> [_Signature...]: the running pods, indexed once
+            # per namespace set (_pod_index); id(node labels) -> their
+            # Requirements. The index holds the labels objects, so their
+            # ids stay theirs.
+            self._pod_index: dict = {}
+            self._node_reqs: dict = {}
             if cluster is not None:
                 self._update_inverse_affinities()
             for p in pods:
@@ -435,25 +491,92 @@ class Topology:
 
     def _count_domains(self, tg: TopologyGroup):
         """Seed group counts from existing cluster pods
-        (topology.go countDomains:256)."""
+        (topology.go countDomains:256), from the index of the group's
+        namespace set."""
         if self.cluster is None:
             return
-        scanned = 0
+        STATS["counts"] += 1
         with obs.span("topology.count") as sp:
-            for pod, node_labels in self.cluster.pods_matching(tg.namespaces, tg.selector):
-                scanned += 1
-                if ignored_for_topology(pod) or pod.uid in self.excluded_pods:
-                    continue
-                domain = (node_labels or {}).get(tg.key)
-                if domain is None and tg.key == wk.HOSTNAME_LABEL:
-                    domain = pod.node_name
+            index, walked = self._pod_index_for(tg.namespaces)
+            matched, runs = 0, []
+            for sig in index:
+                if tg.selector is None or tg.selector.matches(sig.labels):
+                    matched += len(sig.pods)
+                    rows = self._rows(sig)
+                    if rows:
+                        runs.append(rows)
+            tests = 0 if tg.selector is None else len(index)
+            STATS["selector_tests"] += tests
+            rows = runs[0] if len(runs) == 1 else sorted(
+                (r for run in runs for r in run), key=itemgetter(0))
+            hostname = tg.key == wk.HOSTNAME_LABEL
+            # an empty term admits every node, as no terms do: such a filter
+            # (the spread group of a pod with no node selector or affinity)
+            # needs no node's requirements
+            terms = tg.node_filter.terms
+            node_filter = tg.node_filter if terms and all(terms) else None
+            for _, labels, node_name, n in rows:
+                domain = labels.get(tg.key)
+                if domain is None and hostname:
+                    domain = node_name
                 if domain is None:
                     continue
-                if not tg.node_filter.matches_labels(node_labels or {}):
+                if node_filter is not None and not node_filter.matches_requirements(
+                        self._node_requirements(labels)):
                     continue
-                tg.record(domain)
+                tg.record_n(domain, n)
             if sp is not None:
-                sp.attrs = dict(pods=scanned)
+                sp.attrs = dict(pods=matched, walked=walked, tests=tests)
+
+    def _pod_index_for(self, namespaces):
+        """The running pods of ``namespaces`` by their labels, and the
+        pods walked to get them: all of them the first time, else 0."""
+        index = self._pod_index.get(namespaces)
+        if index is not None:
+            return index, 0
+        sigs: dict = {}
+        walked = 0
+        for pod, node_labels in self.cluster.pods_matching(namespaces, None):
+            walked += 1
+            labels = pod.metadata.labels
+            key = tuple(labels.items())
+            sig = sigs.get(key)
+            if sig is None:
+                sig = sigs[key] = _Signature(labels)
+            sig.walk.append(walked)
+            sig.pods.append(pod)
+            sig.nodes.append(node_labels)
+        index = self._pod_index[namespaces] = list(sigs.values())
+        STATS["index_walks"] += 1
+        STATS["pods_walked"] += walked
+        return index, walked
+
+    def _rows(self, sig) -> list:
+        """The counted pods of ``sig`` (neither ignored nor excluded) by
+        node, ``[position of the row's first pod in the walk, node labels,
+        node name, pods]`` in first-seen order, built the first time a
+        count's selector matches it."""
+        if sig.rows is None:
+            rows: dict = {}
+            for walked, pod, node_labels in zip(sig.walk, sig.pods, sig.nodes):
+                if ignored_for_topology(pod) or pod.uid in self.excluded_pods:
+                    continue
+                labels = node_labels or _NO_LABELS
+                key = (id(labels), pod.node_name)
+                row = rows.get(key)
+                if row is None:
+                    rows[key] = [walked, labels, pod.node_name, 1]
+                else:
+                    row[3] += 1
+            sig.rows = list(rows.values())
+        return sig.rows
+
+    def _node_requirements(self, labels) -> Requirements:
+        """``label_requirements(labels)``, once per node."""
+        reqs = self._node_reqs.get(id(labels))
+        if reqs is None:
+            reqs = self._node_reqs[id(labels)] = label_requirements(labels)
+        return reqs
 
     def _matching_topologies(self, pod, requirements):
         out = [tg for tg in self.topologies.values() if pod.uid in tg.owners]

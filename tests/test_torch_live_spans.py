@@ -108,6 +108,30 @@ def test_topology_count_opens_only_with_a_cluster_view(device_path, cluster,
     assert scanned == want and max(scanned) > 0
 
 
+def test_topology_counts_walk_each_namespace_set_once(device_path, cluster):
+    """On a view round, one ``topology.count`` span per namespace set
+    walks that set's running pods to build the index, and every other
+    group's span walks none; ``topology.STATS`` counts the same."""
+    from karpenter_tpu_torch.models import topology
+
+    templates, its, claims = cluster
+    burst = workload.diverse_pods(120, 7)
+    view = _view(claims)
+    before = dict(topology.STATS)
+    with obs.round_trace("provision") as trace:
+        topo = Topology(cluster=view, domains=_domains(templates, its), pods=burst)
+    counts = [c.attrs for c in _all(trace.root, "topology.count") if "walked" in c.attrs]
+    assert len(counts) == len(topo.topologies)
+    sets = {tg.namespaces for tg in topo.topologies.values()}
+    walking = sorted(a["walked"] for a in counts if a["walked"] > 0)
+    assert walking == sorted(sum(1 for _ in view.pods_matching(ns, None)) for ns in sets)
+    assert min(walking) > 0
+    delta = {k: topology.STATS[k] - before[k] for k in before}
+    assert delta == {"counts": len(counts), "index_walks": len(sets),
+                     "pods_walked": sum(walking),
+                     "selector_tests": sum(a["tests"] for a in counts)}
+
+
 def test_existing_stages_open_once_a_call_and_the_counter_counts(device_path,
                                                                  cluster):
     templates, its, claims = cluster
